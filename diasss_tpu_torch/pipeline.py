@@ -1,0 +1,403 @@
+"""End-to-end SLAM pipeline, two-stage estimator.
+
+Counterpart of :func:`diasss_tpu.pipeline.run_slam` for
+``estimator="two_stage"`` in both correspondence modes:
+
+  frames -> overlap gate (bbox IoU) -> [detect -> match] or annotations ->
+  keypoint pairs -> batched loop-closure mini-solves -> quality gate ->
+  chain pose-graph LM (direct step) -> evaluation + trajectory dumps.
+
+Not ported yet, and raising with their ROADMAP item: ``estimator="full_ba"``
+(A10), ``matcher.mode="dense"`` (A12), ``rematch_iters > 0`` (A12),
+``mesh_devices`` (A14), ``pose_graph.marginals`` (A9), and surveys whose lines
+differ in bin count.
+
+Stage times go to ``SlamResult.timings`` (seconds, each stage ended by a
+device synchronise) and path counters to ``SlamResult.counters``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+from torch.utils import _pytree as pytree
+
+from diasss_tpu.config import PipelineConfig
+from diasss_tpu.pairs import KpsPairs, get_kps_pairs
+
+from .evaluate import Eval1Result, Eval2Result
+from .frame import Keyframe
+from .geometry import se3
+from .geometry.sonar import geo_bbox
+from .rng import TorchRng
+from .solvers.lc import LCResult
+
+
+@dataclasses.dataclass
+class SlamResult:
+    poses: se3.Pose3  # (P,) estimated poses, global concatenated order
+    frame_slices: List[slice]
+    pair_ids: List[Tuple[int, int]]
+    lc_results: Dict[Tuple[int, int], LCResult]  # host (CPU) tensors
+    n_lc_accepted: int
+    eval1: Dict[Tuple[int, int], Eval1Result]
+    eval2: Dict[Tuple[int, int], Eval2Result]
+    ate_dr: Optional[float]
+    ate_est: Optional[float]
+    solve_error0: float
+    solve_error: float
+    timings: Dict[str, float]  # stage wall times, seconds
+    counters: Dict[str, int]  # path counters (match_stacked_pairs, solver_direct_solves, ...)
+    solve_capped: bool = False  # the LM hit max_gn_iters while still improving
+
+    def summary(self) -> Dict[str, float]:
+        total_pings = int(self.poses.t.shape[0])
+        wall = sum(self.timings.values())
+        return {
+            "total_pings": total_pings,
+            "wall_seconds": round(wall, 3),
+            "pings_per_sec": round(total_pings / wall, 1) if wall > 0 else float("nan"),
+            "solve_seconds": round(self.timings.get("pose_graph", 0.0), 3),
+            "n_loop_closures": self.n_lc_accepted,
+            "solve_capped": self.solve_capped,
+        }
+
+
+def _check_supported(frames, cfg: PipelineConfig) -> None:
+    def todo(what, item):
+        raise NotImplementedError(f"{what} is not ported to diasss_tpu_torch yet (ROADMAP {item})")
+
+    if cfg.estimator != "two_stage":
+        todo(f"estimator={cfg.estimator!r}", "A10: full BA")
+    if cfg.mesh_devices:
+        todo("mesh_devices (multi-device solves and matching)", "A14: multi-device")
+    if cfg.pose_graph.marginals:
+        todo("pose_graph.marginals (global pose marginals)", "A9: global marginals")
+    if not cfg.pose_graph.use_anno:
+        if cfg.matcher.mode != "kp":
+            todo(f"matcher.mode={cfg.matcher.mode!r}", "A12: dense matcher")
+        if cfg.rematch_iters > 0:
+            todo("rematch_iters > 0 (drift-compensated re-matching)", "A12: re-match planner")
+    if len({int(f.geo.shape[1]) for f in frames}) > 1:
+        todo("surveys whose lines differ in bin count", "A8: mixed-shape surveys")
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _stack_padded(tensors: List[torch.Tensor]) -> torch.Tensor:
+    """Stack per-frame tensors, zero-padding the ping axis (dim 0) to the
+    longest frame; every consumer gathers by in-range ping index only."""
+    n = max(int(t.shape[0]) for t in tensors)
+    return torch.stack([torch.nn.functional.pad(t, (0, 0) * (t.dim() - 1) + (0, n - t.shape[0]))
+                        for t in tensors])
+
+
+def _overlap_pairs(frames: List[Keyframe], min_overlap: float) -> List[Tuple[int, int]]:
+    """Pair gating by geo bbox IoU (diasss2.cpp:88-97): one batched bbox
+    reduction per frame shape, the IoU arithmetic on the host."""
+    bb = np.zeros((len(frames), 4), np.float64)
+    by_shape: dict = {}
+    for k, f in enumerate(frames):
+        by_shape.setdefault(tuple(f.geo.shape), []).append(k)
+    for idxs in by_shape.values():
+        bb[np.asarray(idxs)] = geo_bbox(torch.stack([frames[k].geo for k in idxs])).cpu().numpy()
+    out = []
+    for i in range(len(frames)):
+        for j in range(i + 1, len(frames)):
+            ax0, ax1, ay0, ay1 = bb[i]
+            bx0, bx1, by0, by1 = bb[j]
+            x_ol = min(ax1, bx1) - max(ax0, bx0)
+            y_ol = min(ay1, by1) - max(ay0, by0)
+            if x_ol > 0 and y_ol > 0:
+                a_ol = x_ol * y_ol
+                a_a = abs(ax1 - ax0) * abs(ay1 - ay0)
+                a_b = abs(bx1 - bx0) * abs(by1 - by0)
+                if a_ol / (a_a + a_b - a_ol) > min_overlap:
+                    out.append((i, j))
+    return out
+
+
+def _pad_feats_common(feats):
+    """Pad every frame's features to the survey-max keypoint capacity with
+    ``valid=False`` rows, so mixed-capacity surveys take the stacked path."""
+    cap = max(int(f.xy.shape[0]) for f in feats)
+
+    def pad(f):
+        extra = cap - int(f.xy.shape[0])
+        if extra == 0:
+            return f
+        return type(f)(*[torch.cat([a, torch.zeros((extra,) + a.shape[1:], dtype=a.dtype, device=a.device)])
+                         for a in f])
+
+    return [pad(f) for f in feats]
+
+
+def _match_pairs(frames, feats, geo_list, pair_ids, matcher_cfg, rng, counters):
+    """Detected-correspondence matching over all gated pairs: every pair in
+    one batch (features padded to a common capacity first), or the per-pair
+    path for a single pair.  The path taken is counted in
+    ``counters['match_stacked_pairs' / 'match_perpair_pairs']``."""
+    from .matching.robust import robust_matching, robust_matching_stacked
+
+    corres_rows: Dict[int, list] = {i: [] for i in range(len(frames))}
+    if len(pair_ids) > 1:
+        results = robust_matching_stacked(
+            pair_ids, [f.img_id for f in frames], _pad_feats_common(feats), geo_list,
+            [int(f.raw.shape[0]) for f in frames], rng, cfg=matcher_cfg,
+        )
+        counters["match_stacked_pairs"] = counters.get("match_stacked_pairs", 0) + len(pair_ids)
+    else:
+        results = {
+            (i, j): robust_matching(
+                frames[i].img_id, frames[j].img_id, feats[i], feats[j], geo_list[i], geo_list[j],
+                int(frames[i].raw.shape[0]), int(frames[j].raw.shape[0]), rng, cfg=matcher_cfg,
+            )
+            for (i, j) in pair_ids
+        }
+        counters["match_perpair_pairs"] = counters.get("match_perpair_pairs", 0) + len(pair_ids)
+    for (i, j) in pair_ids:
+        m = results[(i, j)]
+        if m.n_matches:
+            corres_rows[i].append((frames[j].img_id, m.rows_s))
+            corres_rows[j].append((frames[i].img_id, m.rows_t))
+    return corres_rows
+
+
+def _assemble_pairs(frames, corres_rows, pair_ids, cfg: PipelineConfig, use_anno: bool):
+    """Keypoint-pair assembly (``pairs.get_kps_pairs`` on host copies) at one
+    power-of-two capacity."""
+    involved = sorted({k for ij in pair_ids for k in ij})
+    alts_h = {k: frames[k].altitudes.cpu().numpy() for k in involved}
+    grs_h = {k: frames[k].ground_ranges.cpu().numpy() for k in involved}
+    raw_pairs: Dict[Tuple[int, int], KpsPairs] = {}
+    for (i, j) in pair_ids:
+        if use_anno:
+            rows = frames[i].annos
+        else:
+            mine = [r for (ref_id, r) in corres_rows[i] if ref_id == frames[j].img_id]
+            rows = np.concatenate(mine, axis=0) if mine else np.zeros((0, 6))
+        raw_pairs[(i, j)] = get_kps_pairs(
+            rows, frames[j].img_id, alts_h[i], grs_h[i], alts_h[j], grs_h[j],
+            use_anno=use_anno, nadir_threshold=cfg.loop_closure.nadir_threshold, capacity=None,
+        )
+    cap = max([1] + [kp.pairs.shape[0] for kp in raw_pairs.values()])
+    cap = int(2 ** np.ceil(np.log2(cap))) if cap > 1 else 1
+    kps_pairs: Dict[Tuple[int, int], KpsPairs] = {}
+    for key, kp in raw_pairs.items():
+        padded = np.zeros((cap, 7), np.float32)
+        padded[: kp.pairs.shape[0]] = kp.pairs
+        valid = np.zeros(cap, bool)
+        valid[: kp.valid.shape[0]] = kp.valid
+        kps_pairs[key] = KpsPairs(padded, valid)
+    return kps_pairs, cap
+
+
+def _solve_two_stage(frames, geo_list, kps_pairs, pair_ids, cap, cfg: PipelineConfig, rng,
+                     timings, counters):
+    """Batched LC mini-solves -> quality gate -> global pose-graph LM."""
+    from .solvers.lc import loop_closing_tfs_stacked
+    from .solvers.pose_graph import build_chain_graph, solve_pose_graph
+
+    dev = frames[0].geo.device
+    t0 = time.perf_counter()
+    lc_results: Dict[Tuple[int, int], LCResult] = {}
+    if pair_ids:
+        rows_cat = np.concatenate([kps_pairs[k].pairs for k in pair_ids])
+        valid_cat = np.concatenate([kps_pairs[k].valid for k in pair_ids])
+        src_cat = np.concatenate([np.full(cap, i) for (i, j) in pair_ids])
+        tgt_cat = np.concatenate([np.full(cap, j) for (i, j) in pair_ids])
+
+        def up(a, dtype=None):
+            return torch.as_tensor(a, dtype=dtype, device=dev)
+
+        stacked = loop_closing_tfs_stacked(
+            up(rows_cat), up(valid_cat), up(src_cat, torch.int64), up(tgt_cat, torch.int64),
+            _stack_padded([f.dr_poses for f in frames]), _stack_padded(list(geo_list)),
+            _stack_padded([f.altitudes for f in frames]), torch.stack([f.ground_ranges for f in frames]),
+            n_bins=int(frames[0].raw.shape[1]), kp_cfg=cfg.kp_noise, cfg=cfg.loop_closure,
+        )
+        host = pytree.tree_map(lambda a: a.cpu(), stacked)
+        for k, key in enumerate(pair_ids):
+            lc_results[key] = pytree.tree_map(lambda a: a[k * cap:(k + 1) * cap], host)
+    timings["loop_closures"] = timings.get("loop_closures", 0.0) + time.perf_counter() - t0
+
+    # --- accepted LC factors (quality > 0; at most one per target ping) ---
+    t0 = time.perf_counter()
+    offsets = np.cumsum([0] + [int(f.dr_poses.shape[0]) for f in frames])
+    lc_i, lc_j, lc_R, lc_t, lc_sig = [], [], [], [], []
+    seen_targets = set()
+    for (i, j) in pair_ids:
+        res = lc_results[(i, j)]
+        kp = kps_pairs[(i, j)]
+        q = res.quality.numpy()
+        var = res.variance6.numpy()
+        Rm, tm = res.rel_pose.R.numpy(), res.rel_pose.t.numpy()
+        for k in range(len(q)):
+            if not kp.valid[k] or not (q[k] > 0) or not np.all(np.isfinite(var[k])):
+                continue
+            gid_s = int(offsets[i] + kp.pairs[k, 0])
+            gid_t = int(offsets[j] + kp.pairs[k, 3])
+            if gid_t in seen_targets:
+                continue  # first-found wins (optimizer.cpp:218-231)
+            seen_targets.add(gid_t)
+            lc_i.append(gid_s)
+            lc_j.append(gid_t)
+            lc_R.append(Rm[k])
+            lc_t.append(tm[k])
+            lc_sig.append(np.sqrt(np.maximum(var[k], 1e-12)))
+    n_acc = len(lc_i)
+    if n_acc == 0:
+        lc_i, lc_j = [0], [min(1, int(offsets[-1]) - 1)]
+        lc_meas = se3.identity((1,), torch.float32, dev)
+        lc_sigmas = np.ones((1, 6), np.float32)
+        lc_valid = np.zeros(1, bool)
+    else:
+        lc_meas = se3.Pose3(torch.as_tensor(np.stack(lc_R), device=dev), torch.as_tensor(np.stack(lc_t), device=dev))
+        lc_sigmas = np.stack(lc_sig).astype(np.float32)
+        lc_valid = np.ones(n_acc, bool)
+    timings["lc_gate"] = timings.get("lc_gate", 0.0) + time.perf_counter() - t0
+
+    # --- global pose-graph solve ---
+    t0 = time.perf_counter()
+    graph = build_chain_graph(
+        [f.dr_poses for f in frames], lc_i=lc_i, lc_j=lc_j, lc_meas=lc_meas, lc_sigmas=lc_sigmas,
+        lc_valid=lc_valid, cfg=cfg.pose_graph,
+        rng=rng if cfg.pose_graph.init_noise_xyz > 0 else None, device=dev,
+    )
+    poses, info = solve_pose_graph(graph, cfg.pose_graph)
+    counters["solver_direct_solves"] = counters.get("solver_direct_solves", 0) + 1
+    _sync(dev)
+    timings["pose_graph"] = timings.get("pose_graph", 0.0) + time.perf_counter() - t0
+    return poses, info, lc_results, n_acc
+
+
+def _evaluate_pairs(frames, kps_pairs, pair_ids, poses, offsets, cfg, run_eval2):
+    """eval_1 (and eval_2) for every gated pair in one stacked batch."""
+    from .evaluate import eval_landmark_consistency_stacked, eval_triangulated_consistency_stacked
+
+    if not pair_ids:
+        return {}, {}
+    rows_list, sf_list, tf_list, blocks = [], [], [], []
+    start = 0
+    for (i, j) in pair_ids:
+        kp = kps_pairs[(i, j)]
+        rows = kp.pairs[kp.valid]
+        rows_list.append(rows)
+        sf_list.append(np.full(len(rows), i, np.int64))
+        tf_list.append(np.full(len(rows), j, np.int64))
+        blocks.append(((i, j), start, start + len(rows)))
+        start += len(rows)
+    rows_cat, sf_cat, tf_cat = np.concatenate(rows_list), np.concatenate(sf_list), np.concatenate(tf_list)
+    geo_all = _stack_padded([f.geo for f in frames])
+    eval1 = eval_landmark_consistency_stacked(
+        rows_cat, sf_cat, tf_cat, blocks, geo_all, torch.stack([f.ground_ranges for f in frames]),
+        poses, offsets[:-1], int(frames[0].raw.shape[1]),
+    )
+    eval2 = {}
+    if run_eval2:
+        eval2 = eval_triangulated_consistency_stacked(
+            rows_cat, sf_cat, tf_cat, blocks, _stack_padded([f.dr_poses for f in frames]), geo_all,
+            _stack_padded([f.altitudes for f in frames]), poses, offsets[:-1], cfg.kp_noise, cfg.loop_closure,
+        )
+    return eval1, eval2
+
+
+def run_slam(
+    frames: List[Keyframe],
+    cfg: PipelineConfig = PipelineConfig(),
+    gt_rows_list: Optional[List[np.ndarray]] = None,
+    out_dir: Optional[str] = None,
+    run_eval2: bool = True,
+    feats: Optional[list] = None,
+    rng=None,
+) -> SlamResult:
+    """Run the two-stage SLAM pipeline on keyframes built on one device.
+
+    ``feats``: precomputed per-frame :class:`.features.DetectedFeatures`
+    (detected mode); ``rng``: an :class:`.rng.Rng` (default: a
+    :class:`.rng.TorchRng` seeded from ``cfg`` on the frames' device)."""
+    _check_supported(frames, cfg)
+    dev = frames[0].geo.device
+    rng = rng if rng is not None else TorchRng.from_config(cfg, dev)
+    timings: Dict[str, float] = {}
+    counters: Dict[str, int] = {}
+
+    t0 = time.perf_counter()
+    pair_ids = _overlap_pairs(frames, cfg.min_overlap)
+    timings["overlap_gate"] = time.perf_counter() - t0
+
+    use_anno = cfg.pose_graph.use_anno
+    corres_rows = None
+    if not use_anno:
+        if feats is None:
+            from .features import detect_features
+
+            t0 = time.perf_counter()
+            feats = [detect_features(f.norm, f.mask, cfg.detector) for f in frames]
+            _sync(dev)
+            timings["detect"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        corres_rows = _match_pairs(frames, feats, [f.geo for f in frames], pair_ids, cfg.matcher, rng, counters)
+        timings["matching"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    kps_pairs, cap = _assemble_pairs(frames, corres_rows, pair_ids, cfg, use_anno)
+    timings["kps_assembly"] = time.perf_counter() - t0
+
+    poses, info, lc_results, n_acc = _solve_two_stage(
+        frames, [f.geo for f in frames], kps_pairs, pair_ids, cap, cfg, rng, timings, counters
+    )
+
+    t0 = time.perf_counter()
+    offsets = np.cumsum([0] + [int(f.dr_poses.shape[0]) for f in frames])
+    frame_slices = [slice(int(offsets[k]), int(offsets[k + 1])) for k in range(len(frames))]
+    eval1, eval2 = _evaluate_pairs(frames, kps_pairs, pair_ids, poses, offsets, cfg, run_eval2)
+    ate_dr = ate_est = None
+    if gt_rows_list is not None:
+        from .evaluate import trajectory_ate_pair
+
+        dr_t = torch.cat([f.dr_poses[:, 3:6] for f in frames])
+        ate_dr, ate_est = trajectory_ate_pair(dr_t, poses, np.concatenate(gt_rows_list, axis=0))
+    timings["evaluation"] = time.perf_counter() - t0
+
+    if out_dir is not None:
+        from .trajectory import save_poses_quat, save_poses_rpy
+
+        dr_all = se3.from_rodrigues_xyz(torch.cat([f.dr_poses for f in frames]))
+        save_poses_rpy(f"{out_dir}/dr_poses_all.txt", dr_all)
+        save_poses_rpy(f"{out_dir}/est_poses_all.txt", poses)
+        if len(frames) == 2:
+            save_poses_quat(f"{out_dir}/dr_poses.txt", dr_all)
+            save_poses_quat(f"{out_dir}/est_poses.txt", poses)
+
+    t0 = time.perf_counter()
+    err0, err = torch.stack([info.error0, info.error]).cpu().tolist()
+    timings["result_fetch"] = time.perf_counter() - t0
+    result = SlamResult(
+        poses=poses,
+        frame_slices=frame_slices,
+        pair_ids=pair_ids,
+        lc_results=lc_results,
+        n_lc_accepted=n_acc,
+        eval1=eval1,
+        eval2=eval2,
+        ate_dr=ate_dr,
+        ate_est=ate_est,
+        solve_error0=float(err0),
+        solve_error=float(err),
+        timings=timings,
+        counters=counters,
+        solve_capped=info.iterations >= cfg.pose_graph.max_gn_iters and info.stall == 0,
+    )
+    if out_dir is not None:
+        from diasss_tpu.dumps import write_reference_dumps
+
+        write_reference_dumps(out_dir, result, kps_pairs)
+    return result
