@@ -4,13 +4,16 @@ Same folder flags as :mod:`diasss_tpu.cli` (the reference binary's five, plus
 ``--gt``, ``--out``, ``--metrics``), run on one torch device:
 
     python -m diasss_tpu_torch.cli --image DIR --pose DIR --altitude DIR \\
-        --groundrange DIR --annotation DIR [--detected] [--device cuda] \\
-        [--gt DIR] [--out DIR --no-marginals] [--metrics FILE --no-marginals]
+        --groundrange DIR --annotation DIR [--detected | --auto [--drift-budget M]] \\
+        [--estimator full_ba] [--device cuda] [--gt DIR] \\
+        [--out DIR --no-marginals] [--metrics FILE --no-marginals]
 
-Flags of features not ported yet (``--estimator full_ba``, ``--auto``,
-``--online``, ``--mosaic``, ``--mesh``, non-SIFT descriptors, and the global
-marginals that ``--out``/``--metrics`` turn on unless ``--no-marginals``)
-exit with an error that names their ROADMAP item.
+``--auto`` runs the automatic profile (dense world-correlation matching,
+joint full BA, drift-compensated re-matching); ``--estimator full_ba`` runs
+the joint BA on annotations.  Flags of features not ported yet
+(``--online``, ``--mosaic``, ``--mesh``, non-SIFT descriptors with
+``--detected``, and the pose marginals that ``--out``/``--metrics`` turn on
+unless ``--no-marginals``) exit with an error that names their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -21,19 +24,6 @@ import json
 import os
 import sys
 import time
-
-
-def detected_config(cfg, descriptor: str = "sift"):
-    """``cfg`` with the ``--detected`` settings of ``diasss_tpu/cli.py:118-134``."""
-    from diasss_tpu.config import DetectorConfig, MatcherConfig, PoseGraphConfig
-
-    return dataclasses.replace(
-        cfg,
-        detector=DetectorConfig(descriptor=descriptor, desc_size_scale=8.0 / 31.0),
-        matcher=MatcherConfig(ratio_excl_radius=2.0, ratio_test=0.6, sift_dist_bound=450.0,
-                              cross_check=True, scc_mode="xy"),
-        pose_graph=PoseGraphConfig(use_anno=False),
-    )
 
 
 def main(argv=None) -> int:
@@ -52,7 +42,11 @@ def main(argv=None) -> int:
     parser.add_argument("--detected", action="store_true",
                         help="detect+match features instead of using annotations (USE_ANNO=0)")
     parser.add_argument("--descriptor", default="sift", choices=["sift", "orb", "geo_patch"])
-    parser.add_argument("--auto", action="store_true", help="fully-automatic profile")
+    parser.add_argument("--auto", action="store_true",
+                        help="fully automatic profile: dense world-correlation matching + joint full BA + "
+                             "drift-compensated re-matching (the annotation folder is still read for evaluation)")
+    parser.add_argument("--drift-budget", type=float, default=4.0,
+                        help="--auto: largest credible DR drift between overlapping lines (m)")
     parser.add_argument("--min-overlap", type=float, default=None,
                         help="override the pair-gate IoU threshold (reference: 0.4)")
     parser.add_argument("--online", action="store_true", help="stream lines incrementally")
@@ -60,19 +54,17 @@ def main(argv=None) -> int:
     parser.add_argument("--mesh", type=int, default=None, metavar="N", help="N-device mesh")
     parser.add_argument("--no-marginals", action="store_true",
                         help="skip per-pose marginal covariances (required with --out/--metrics "
-                             "until the global marginals are ported)")
+                             "until the pose marginals are ported, ROADMAP A9)")
     args = parser.parse_args(argv)
 
     not_ported = [
-        (args.estimator == "full_ba", "--estimator full_ba", "A10: full BA"),
-        (args.auto, "--auto", "A12: dense matcher"),
         (args.online, "--online", "A13: online SLAM"),
         (args.mosaic is not None, "--mosaic", "A13: extras"),
         (bool(args.mesh), "--mesh", "A14: multi-device"),
-        (args.detected and args.descriptor != "sift", f"--descriptor {args.descriptor}",
+        (args.detected and not args.auto and args.descriptor != "sift", f"--descriptor {args.descriptor}",
          "A11: orb/geo_patch descriptors"),
         ((args.out or args.metrics) and not args.no_marginals, "--out/--metrics without --no-marginals "
-         "(they report global pose marginals)", "A9: global marginals"),
+         "(they report pose marginals; pass --no-marginals)", "A9: pose marginals"),
     ]
     for hit, flag, item in not_ported:
         if hit:
@@ -81,10 +73,9 @@ def main(argv=None) -> int:
     import numpy as np
     import torch
 
-    from diasss_tpu.config import PipelineConfig
-    from diasss_tpu.io import load_input_data
-
+    from .config import PipelineConfig, automatic_config, detected_config
     from .frame import build_keyframes_batch
+    from .io import load_input_data
     from .pipeline import run_slam
 
     device = torch.device(args.device)
@@ -94,15 +85,17 @@ def main(argv=None) -> int:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
 
-    cfg = PipelineConfig()
+    if args.auto:
+        cfg = automatic_config(drift_budget=args.drift_budget)
+    else:
+        cfg = PipelineConfig(estimator=args.estimator)
     if args.min_overlap is not None:
         cfg = dataclasses.replace(cfg, min_overlap=args.min_overlap)
-    if args.detected:
+    if args.detected and not args.auto:
         cfg = detected_config(cfg, args.descriptor)
 
     t0 = time.perf_counter()
-    data = load_input_data(args.image, args.pose, args.altitude, args.groundrange, args.annotation,
-                           use_native=False)
+    data = load_input_data(args.image, args.pose, args.altitude, args.groundrange, args.annotation)
     items = [
         (k, img, pose, alt, gr, anno)
         for k, (img, pose, alt, gr, anno) in enumerate(zip(

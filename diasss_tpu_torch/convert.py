@@ -14,7 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from diasss_tpu.pairs import KpsPairs
+from .pairs import KpsPairs
 
 from .features.detector import DetectedFeatures
 from .frame import Keyframe
@@ -33,8 +33,9 @@ def _is_tree(x) -> bool:
     return isinstance(x, tuple) and hasattr(x, "_fields")
 
 
-def to_torch(tree, device="cpu"):
-    """JAX-package tree -> the port's tree of the same type name on ``device``."""
+def to_torch(tree, device="cuda"):
+    """JAX-package tree -> the port's tree of the same type name on ``device``
+    (the card unless the caller asks for another)."""
     name = type(tree).__name__
     if name not in PORT_TYPES:
         raise TypeError(f"no port counterpart for {name}; known: {sorted(PORT_TYPES)}")

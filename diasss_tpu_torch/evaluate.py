@@ -16,7 +16,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from diasss_tpu.config import KeypointNoiseConfig, LoopClosureConfig
+from .config import KeypointNoiseConfig, LoopClosureConfig
 
 from .geometry import se3, so3, sonar
 

@@ -20,7 +20,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from diasss_tpu.config import DetectorConfig
+from ..config import DetectorConfig
 
 from .fast import fast_score, nms3
 from .orient import ic_angles
@@ -136,17 +136,22 @@ def _detect_level(limg: torch.Tensor, lvl: int, k_level: int, cfg: DetectorConfi
     cap = _cell_cap(n, m, k_level, cfg.cell_size)
     xy, resp, valid = _select_keypoints(score, k_level, cfg.cell_size, cap, cfg.edge_threshold)
     ang = ic_angles(limg, xy)
-    blurred = gaussian_blur(limg, cfg.blur_ksize, cfg.blur_sigma)
     size_lvl = PATCH_SIZE * scale
     dev = limg.device
-    sizes = torch.full((k_level,), size_lvl * cfg.desc_size_scale, dtype=torch.float32, device=dev)
+    if cfg.descriptor == "geo_patch":
+        # the dense matcher reads world patches from the raster, not from here
+        desc = torch.zeros((k_level, 1), dtype=torch.float32, device=dev)
+    else:
+        blurred = gaussian_blur(limg, cfg.blur_ksize, cfg.blur_sigma)
+        sizes = torch.full((k_level,), size_lvl * cfg.desc_size_scale, dtype=torch.float32, device=dev)
+        desc = sift_descriptors(blurred, xy, ang, sizes)
     return DetectedFeatures(
         xy=xy * scale,
         response=resp,
         angle=ang,
         size=torch.full((k_level,), size_lvl, dtype=torch.float32, device=dev),
         level=torch.full((k_level,), lvl, dtype=torch.int32, device=dev),
-        desc=sift_descriptors(blurred, xy, ang, sizes),
+        desc=desc,
         valid=valid,
     )
 
@@ -157,16 +162,19 @@ def detect_features(
     cfg: DetectorConfig = DetectorConfig(),
     stacked: bool = False,
 ) -> DetectedFeatures:
-    """Detect keypoints + SIFT descriptors on a normalized waterfall image;
-    keypoints outside ``mask`` are invalidated (frame.cpp:184-195)."""
+    """Detect keypoints + descriptors on a normalized waterfall image;
+    keypoints outside ``mask`` are invalidated (frame.cpp:184-195).
+    ``descriptor="sift"`` computes SIFT descriptors; ``"geo_patch"`` returns
+    the (K, 1) zero descriptor, as the JAX package does (its world patches
+    are read by the dense matcher or attached by the pipeline)."""
     if stacked:
         raise NotImplementedError(
             "detect_features(stacked=True) is not ported: the single-program "
             "layout is on ROADMAP's not-to-port list (measured slower than per-level)"
         )
-    if cfg.descriptor != "sift":
+    if cfg.descriptor not in ("sift", "geo_patch"):
         raise NotImplementedError(
-            f"descriptor {cfg.descriptor!r} is not ported yet (ROADMAP A11: orb/geo_patch descriptors)"
+            f"descriptor {cfg.descriptor!r} is not ported yet (ROADMAP A11: orb descriptors)"
         )
     img = norm_img.to(torch.float32)
     per_level = features_per_level(cfg.n_features, cfg.n_levels, cfg.scale_factor)

@@ -16,7 +16,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from diasss_tpu.config import MaskConfig, NormalizeConfig
+from .config import MaskConfig, NormalizeConfig
 
 from .geometry import sonar
 
@@ -77,11 +77,12 @@ def build_keyframes_batch(
     items,
     norm_cfg: NormalizeConfig = NormalizeConfig(),
     mask_cfg: MaskConfig = MaskConfig(),
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ):
     """Keyframes for ``items`` = ``(img_id, raw, dr_poses, altitudes,
-    ground_ranges[, annos])`` tuples.  Equal-shape lines are stacked and
-    preprocessed as one batch; mixed shapes fall back to per-frame builds."""
+    ground_ranges[, annos])`` tuples, on the card unless ``device`` says
+    otherwise.  Equal-shape lines are stacked and preprocessed as one batch;
+    mixed shapes fall back to per-frame builds."""
     shapes = {(np.shape(it[1]), np.shape(it[2]), np.shape(it[3])) for it in items}
     if len(shapes) != 1:
         return [build_keyframe(*it, norm_cfg=norm_cfg, mask_cfg=mask_cfg, device=device)
@@ -114,7 +115,7 @@ def build_keyframe(
     annos: Optional[np.ndarray] = None,
     norm_cfg: NormalizeConfig = NormalizeConfig(),
     mask_cfg: MaskConfig = MaskConfig(),
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> Keyframe:
     """One keyframe: upload the line and run normalize + mask + geo."""
     return build_keyframes_batch(

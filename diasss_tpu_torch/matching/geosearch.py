@@ -12,7 +12,7 @@ from typing import NamedTuple
 
 import torch
 
-from diasss_tpu.config import MatcherConfig
+from ..config import MatcherConfig
 
 _BIG = 1e9
 

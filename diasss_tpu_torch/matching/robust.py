@@ -14,7 +14,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from diasss_tpu.config import MatcherConfig
+from ..config import MatcherConfig
 
 from ..features.detector import DetectedFeatures
 from ..geometry.sonar import geo_bbox

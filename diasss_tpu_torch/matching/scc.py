@@ -14,7 +14,7 @@ from typing import NamedTuple
 
 import torch
 
-from diasss_tpu.config import MatcherConfig
+from ..config import MatcherConfig
 
 
 class SCCResult(NamedTuple):

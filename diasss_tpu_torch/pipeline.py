@@ -1,16 +1,24 @@
-"""End-to-end SLAM pipeline, two-stage estimator.
+"""End-to-end SLAM pipeline.
 
-Counterpart of :func:`diasss_tpu.pipeline.run_slam` for
-``estimator="two_stage"`` in both correspondence modes:
+Counterpart of :func:`diasss_tpu.pipeline.run_slam`:
 
   frames -> overlap gate (bbox IoU) -> [detect -> match] or annotations ->
-  keypoint pairs -> batched loop-closure mini-solves -> quality gate ->
-  chain pose-graph LM (direct step) -> evaluation + trajectory dumps.
+  keypoint pairs -> estimator -> evaluation + trajectory dumps,
 
-Not ported yet, and raising with their ROADMAP item: ``estimator="full_ba"``
-(A10), ``matcher.mode="dense"`` (A12), ``rematch_iters > 0`` (A12),
-``mesh_devices`` (A14), ``pose_graph.marginals`` (A9), and surveys whose lines
-differ in bin count.
+with the estimator either ``"two_stage"`` (batched loop-closure mini-solves
+-> quality gate -> chain pose-graph LM, direct step) or ``"full_ba"`` (joint
+pose + landmark bundle adjustment, direct Schur/Woodbury step).  Matching is
+the keypoint matcher (``matcher.mode="kp"``) or the dense world-correlation
+matcher (``"dense"``).  On the detected path, ``rematch_iters > 0`` iterates
+match -> assemble -> solve: geo is recomputed from the estimated poses, the
+search extent shrinks to the measured residual, and the solve is
+warm-started.  The automatic profile (``config.automatic_config()``) runs
+detection, dense matching, full BA and two re-match rounds.
+
+Not ported yet, and raising with their ROADMAP item: ``mesh_devices`` (A14),
+``pose_graph.marginals`` and ``full_ba.marginals`` (A9), geo-patch
+descriptors with the keypoint matcher (A11), and surveys whose lines differ
+in bin count (A8).
 
 Stage times go to ``SlamResult.timings`` (seconds, each stage ended by a
 device synchronise) and path counters to ``SlamResult.counters``.
@@ -26,8 +34,8 @@ import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
-from diasss_tpu.config import PipelineConfig
-from diasss_tpu.pairs import KpsPairs, get_kps_pairs
+from .config import PipelineConfig
+from .pairs import KpsPairs, get_kps_pairs
 
 from .evaluate import Eval1Result, Eval2Result
 from .frame import Keyframe
@@ -61,7 +69,7 @@ class SlamResult:
             "total_pings": total_pings,
             "wall_seconds": round(wall, 3),
             "pings_per_sec": round(total_pings / wall, 1) if wall > 0 else float("nan"),
-            "solve_seconds": round(self.timings.get("pose_graph", 0.0), 3),
+            "solve_seconds": round(self.timings.get("pose_graph", 0.0) + self.timings.get("full_ba", 0.0), 3),
             "n_loop_closures": self.n_lc_accepted,
             "solve_capped": self.solve_capped,
         }
@@ -71,17 +79,16 @@ def _check_supported(frames, cfg: PipelineConfig) -> None:
     def todo(what, item):
         raise NotImplementedError(f"{what} is not ported to diasss_tpu_torch yet (ROADMAP {item})")
 
-    if cfg.estimator != "two_stage":
-        todo(f"estimator={cfg.estimator!r}", "A10: full BA")
+    if cfg.estimator not in ("two_stage", "full_ba"):
+        raise ValueError(f"unknown estimator {cfg.estimator!r}")
     if cfg.mesh_devices:
         todo("mesh_devices (multi-device solves and matching)", "A14: multi-device")
-    if cfg.pose_graph.marginals:
+    if cfg.estimator == "two_stage" and cfg.pose_graph.marginals:
         todo("pose_graph.marginals (global pose marginals)", "A9: global marginals")
-    if not cfg.pose_graph.use_anno:
-        if cfg.matcher.mode != "kp":
-            todo(f"matcher.mode={cfg.matcher.mode!r}", "A12: dense matcher")
-        if cfg.rematch_iters > 0:
-            todo("rematch_iters > 0 (drift-compensated re-matching)", "A12: re-match planner")
+    if cfg.estimator == "full_ba" and cfg.full_ba.marginals:
+        todo("full_ba.marginals (ba_pose_marginals)", "A9: global marginals")
+    if not cfg.pose_graph.use_anno and cfg.matcher.mode == "kp" and cfg.detector.descriptor == "geo_patch":
+        todo("geo_patch descriptors with the keypoint matcher", "A11: geo_patch attach")
     if len({int(f.geo.shape[1]) for f in frames}) > 1:
         todo("surveys whose lines differ in bin count", "A8: mixed-shape surveys")
 
@@ -139,20 +146,47 @@ def _pad_feats_common(feats):
     return [pad(f) for f in feats]
 
 
-def _match_pairs(frames, feats, geo_list, pair_ids, matcher_cfg, rng, counters):
-    """Detected-correspondence matching over all gated pairs: every pair in
-    one batch (features padded to a common capacity first), or the per-pair
-    path for a single pair.  The path taken is counted in
-    ``counters['match_stacked_pairs' / 'match_perpair_pairs']``."""
+def _count(counters, key, n):
+    counters[key] = counters.get(key, 0) + n
+
+
+def _match_pairs_dense(frames, feats, geo_list, pair_ids, cfg: PipelineConfig, matcher_cfg, counters):
+    """Dense world-correlation matching (matching/dense.py): every frame
+    rasterized once at the survey-common shape, all pairs correlated in one
+    batch (features padded to a common capacity first)."""
+    from .matching.dense import dense_matching_stacked
+
+    corres_rows: Dict[int, list] = {i: [] for i in range(len(frames))}
+    if not pair_ids:
+        return corres_rows
+    results = dense_matching_stacked(pair_ids, [f.img_id for f in frames], _pad_feats_common(feats),
+                                     [f.norm for f in frames], geo_list, cfg.detector, matcher_cfg.dense)
+    _count(counters, "match_stacked_pairs", len(pair_ids))
+    for (i, j), (rows_s, rows_t, n) in results.items():
+        if n:
+            corres_rows[i].append((frames[j].img_id, rows_s))
+            corres_rows[j].append((frames[i].img_id, rows_t))
+    return corres_rows
+
+
+def _match_pairs(frames, feats, geo_list, pair_ids, cfg: PipelineConfig, matcher_cfg, rng, counters):
+    """Detected-correspondence matching over all gated pairs (geo gating
+    against ``geo_list``: DR geo, or drift-compensated geo on re-match
+    rounds).  Dense mode goes to :func:`_match_pairs_dense`; the keypoint
+    matcher takes every pair in one batch (features padded to a common
+    capacity first), or the per-pair path for a single pair.  The path taken
+    is counted in ``counters['match_stacked_pairs' / 'match_perpair_pairs']``."""
     from .matching.robust import robust_matching, robust_matching_stacked
 
+    if matcher_cfg.mode == "dense":
+        return _match_pairs_dense(frames, feats, geo_list, pair_ids, cfg, matcher_cfg, counters)
     corres_rows: Dict[int, list] = {i: [] for i in range(len(frames))}
     if len(pair_ids) > 1:
         results = robust_matching_stacked(
             pair_ids, [f.img_id for f in frames], _pad_feats_common(feats), geo_list,
             [int(f.raw.shape[0]) for f in frames], rng, cfg=matcher_cfg,
         )
-        counters["match_stacked_pairs"] = counters.get("match_stacked_pairs", 0) + len(pair_ids)
+        _count(counters, "match_stacked_pairs", len(pair_ids))
     else:
         results = {
             (i, j): robust_matching(
@@ -161,7 +195,7 @@ def _match_pairs(frames, feats, geo_list, pair_ids, matcher_cfg, rng, counters):
             )
             for (i, j) in pair_ids
         }
-        counters["match_perpair_pairs"] = counters.get("match_perpair_pairs", 0) + len(pair_ids)
+        _count(counters, "match_perpair_pairs", len(pair_ids))
     for (i, j) in pair_ids:
         m = results[(i, j)]
         if m.n_matches:
@@ -272,7 +306,7 @@ def _solve_two_stage(frames, geo_list, kps_pairs, pair_ids, cap, cfg: PipelineCo
         rng=rng if cfg.pose_graph.init_noise_xyz > 0 else None, device=dev,
     )
     poses, info = solve_pose_graph(graph, cfg.pose_graph)
-    counters["solver_direct_solves"] = counters.get("solver_direct_solves", 0) + 1
+    _count(counters, "solver_direct_solves", 1)
     _sync(dev)
     timings["pose_graph"] = timings.get("pose_graph", 0.0) + time.perf_counter() - t0
     return poses, info, lc_results, n_acc
@@ -309,6 +343,131 @@ def _evaluate_pairs(frames, kps_pairs, pair_ids, poses, offsets, cfg, run_eval2)
     return eval1, eval2
 
 
+def _match_residual_q95(rows_cat, valid_cat, src_cat, tgt_cat, geo_st):
+    """95th percentile of the post-solve geo discrepancy of the current
+    matches, ``||geo_s[ping_s, bin_s] - geo_t[ping_t, bin_t]||`` per valid
+    row with geo from the estimated poses, and the valid-row count, as two
+    device scalars.  ``rows_cat`` (K, 7) keypoint-pair rows concatenated over
+    pairs; ``src_cat``/``tgt_cat`` (K,) frame indices; ``geo_st`` (F, N, M, 2)."""
+    N, M = geo_st.shape[1], geo_st.shape[2]
+
+    def take(fidx, ping, binc):
+        return geo_st[fidx, torch.clamp(ping.to(torch.int32), 0, N - 1).to(torch.int64),
+                      torch.clamp(binc.to(torch.int32), 0, M - 1).to(torch.int64)]
+
+    d = torch.linalg.vector_norm(take(src_cat, rows_cat[:, 0], rows_cat[:, 1])
+                                 - take(tgt_cat, rows_cat[:, 3], rows_cat[:, 4]), dim=1)
+    n = valid_cat.sum()
+    K = d.shape[0]
+    # masked quantile: invalid rows sort to the front as -1
+    s = torch.sort(torch.where(valid_cat, d, -1.0)).values
+    rank = torch.minimum(torch.clamp((0.95 * n.to(torch.float32)).to(torch.int32), min=0),
+                         torch.clamp(n - 1, min=0))
+    pos = torch.clamp((K - n) + rank, 0, K - 1)
+    return s[pos], n
+
+
+# Bucketed search extents (raster cells) of adaptive re-matching: the
+# measured residual rounds up to one of these.
+_REMATCH_RING_BUCKETS = (4, 8, 12, 16, 20, 28, 40)
+
+
+def _rematch_plan(poses, prev_t, kps_pairs, pair_ids, geo_new, cfg: PipelineConfig):
+    """Decide the next re-match round: ``(stop, radius_m, ring_cells, t,
+    budget_saturated)``.
+
+    * stop: the last solve moved every pose by less than half a raster cell
+      (the matches cannot change), or the residual q95 of the current
+      matches at the drift-compensated geo is already at the matcher's
+      quantization floor (``rematch_stop_resid_cells`` cells);
+    * radius: the measured residual q95 times ``rematch_margin`` plus two
+      cells, rounded up to a bucket of :data:`_REMATCH_RING_BUCKETS` and
+      capped at ``rematch_geo_radius``; saturated when the residual wants
+      more than the cap.
+
+    The pose shift, the q95 and the valid count reach the host in one read."""
+    res = cfg.detector.geopatch_res
+    t = poses.t
+    radius = cfg.rematch_geo_radius
+    cells = int(np.ceil(radius / res))
+    parts = [torch.linalg.vector_norm(t - prev_t, dim=1).amax() if prev_t is not None
+             else torch.zeros((), dtype=t.dtype, device=t.device)]
+    use_q95 = cfg.rematch_adaptive and bool(kps_pairs) and len({tuple(g.shape) for g in geo_new}) == 1
+    if use_q95:
+        dev = t.device
+        rows_cat = np.concatenate([kps_pairs[k].pairs for k in pair_ids])
+        valid_cat = np.concatenate([kps_pairs[k].valid for k in pair_ids])
+        src_cat = np.concatenate([np.full(kps_pairs[(i, j)].pairs.shape[0], i) for (i, j) in pair_ids])
+        tgt_cat = np.concatenate([np.full(kps_pairs[(i, j)].pairs.shape[0], j) for (i, j) in pair_ids])
+        q95, n = _match_residual_q95(
+            torch.as_tensor(rows_cat, device=dev), torch.as_tensor(valid_cat, device=dev),
+            torch.as_tensor(src_cat, dtype=torch.int64, device=dev),
+            torch.as_tensor(tgt_cat, dtype=torch.int64, device=dev), torch.stack(list(geo_new)))
+        parts += [q95.to(t.dtype), n.to(t.dtype)]
+    host = torch.stack(parts).cpu().tolist()
+    if prev_t is not None and host[0] < 0.5 * res:
+        return True, None, None, t, False
+    if use_q95 and int(host[2]) >= 8:  # enough support for the quantile to mean anything
+        q95 = host[1]
+        if q95 <= cfg.rematch_stop_resid_cells * res:
+            return True, None, None, t, False
+        need_cells = int(np.ceil((q95 * cfg.rematch_margin + 2.0 * res) / res))
+        for b in _REMATCH_RING_BUCKETS:
+            if b >= need_cells:
+                need_cells = b
+                break
+        saturated = need_cells > cells
+        cells = min(cells, max(need_cells, _REMATCH_RING_BUCKETS[0]))
+        return False, cells * res, cells, t, saturated
+    return False, radius, cells, t, False
+
+
+def _estimated_geo(frames, poses: se3.Pose3) -> List[torch.Tensor]:
+    """Every frame's geo image recomputed from the estimated poses (same
+    flat-floor projection as frame.cpp:126-165), on the device."""
+    from .geometry import sonar
+
+    rows = se3.to_rpyxyz(poses)
+    out, off = [], 0
+    for f in frames:
+        n = int(f.dr_poses.shape[0])
+        seg = rows[off:off + n]
+        off += n
+        out.append(sonar.geo_image(seg[:, 3:5].contiguous(), seg[:, 2].contiguous(), f.ground_ranges,
+                                   int(f.raw.shape[1])))
+    return out
+
+
+def _solve_full_ba(frames, geo_list, kps_pairs, pair_ids, cfg: PipelineConfig, init_poses, it, rng,
+                   timings, counters):
+    """Joint bundle adjustment, warm-started from the previous solve on
+    re-match rounds."""
+    from .solvers.full_ba import build_ba_problem, solve_full_ba
+
+    t0 = time.perf_counter()
+    ba_cfg = cfg.full_ba
+    if not cfg.pose_graph.use_anno and ba_cfg.max_geo_discrepancy == 0:
+        # detected matches carry outliers the joint solve would trust
+        ba_cfg = dataclasses.replace(ba_cfg, max_geo_discrepancy=4.0)
+    if it > 0:
+        # drift-compensated geo: true matches agree to within the residual
+        ba_cfg = dataclasses.replace(ba_cfg, max_geo_discrepancy=cfg.rematch_geo_discrepancy)
+    noise = rng if cfg.pose_graph.init_noise_xyz > 0 and init_poses is None else None
+    frames_geo = [f._replace(geo=g) for f, g in zip(frames, geo_list)]
+    prob = build_ba_problem(frames_geo, kps_pairs, pair_ids, ba_cfg, cfg.pose_graph, rng=noise)
+    if init_poses is not None:
+        prob = prob._replace(poses0=init_poses)
+    n_valid = int(prob.kp_valid.sum())
+    # the Woodbury columns stop at the 128-bucketed valid count (the padding
+    # tail is invalid)
+    k_cols = min(int(prob.kp_i.shape[0]), max(128, -(-n_valid // 128) * 128))
+    poses, lms, info = solve_full_ba(prob, ba_cfg, cfg.kp_noise, k_direct_cols=k_cols)
+    _count(counters, f"solver_{info.solver_kind}_solves", 1)
+    _sync(poses.t.device)
+    timings["full_ba"] = timings.get("full_ba", 0.0) + time.perf_counter() - t0
+    return poses, info, n_valid
+
+
 def run_slam(
     frames: List[Keyframe],
     cfg: PipelineConfig = PipelineConfig(),
@@ -318,7 +477,7 @@ def run_slam(
     feats: Optional[list] = None,
     rng=None,
 ) -> SlamResult:
-    """Run the two-stage SLAM pipeline on keyframes built on one device.
+    """Run the SLAM pipeline on keyframes built on one device.
 
     ``feats``: precomputed per-frame :class:`.features.DetectedFeatures`
     (detected mode); ``rng``: an :class:`.rng.Rng` (default: a
@@ -334,26 +493,56 @@ def run_slam(
     timings["overlap_gate"] = time.perf_counter() - t0
 
     use_anno = cfg.pose_graph.use_anno
-    corres_rows = None
-    if not use_anno:
-        if feats is None:
-            from .features import detect_features
+    if not use_anno and feats is None:
+        from .features import detect_features
 
-            t0 = time.perf_counter()
-            feats = [detect_features(f.norm, f.mask, cfg.detector) for f in frames]
-            _sync(dev)
-            timings["detect"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        corres_rows = _match_pairs(frames, feats, [f.geo for f in frames], pair_ids, cfg.matcher, rng, counters)
-        timings["matching"] = time.perf_counter() - t0
+        feats = [detect_features(f.norm, f.mask, cfg.detector) for f in frames]
+        _sync(dev)
+        timings["detect"] = time.perf_counter() - t0
 
-    t0 = time.perf_counter()
-    kps_pairs, cap = _assemble_pairs(frames, corres_rows, pair_ids, cfg, use_anno)
-    timings["kps_assembly"] = time.perf_counter() - t0
+    # iterated match -> assemble -> solve (re-matching only when detected)
+    geo_list = [f.geo for f in frames]
+    n_iters = 1 + (cfg.rematch_iters if not use_anno else 0)
+    init_poses = poses = info = prev_t = None
+    lc_results: Dict[Tuple[int, int], LCResult] = {}
+    n_acc = 0
+    kps_pairs: Dict[Tuple[int, int], KpsPairs] = {}
+    for it in range(n_iters):
+        corres_rows = None
+        if not use_anno:
+            t0 = time.perf_counter()
+            matcher_cfg = cfg.matcher
+            if it > 0:
+                geo_new = _estimated_geo(frames, poses)
+                stop, radius, cells, prev_t, saturated = _rematch_plan(poses, prev_t, kps_pairs, pair_ids,
+                                                                       geo_new, cfg)
+                if saturated:
+                    _count(counters, "rematch_saturated_rounds", 1)
+                if stop:
+                    _count(counters, "rematch_converged_rounds", n_iters - it)
+                    timings["matching"] = timings.get("matching", 0.0) + time.perf_counter() - t0
+                    break
+                geo_list = geo_new
+                counters[f"rematch_r{it}_ring_cells"] = cells
+                matcher_cfg = dataclasses.replace(
+                    matcher_cfg, geo_radius=radius,
+                    dense=dataclasses.replace(matcher_cfg.dense, search_radius=radius))
+            corres_rows = _match_pairs(frames, feats, geo_list, pair_ids, cfg, matcher_cfg, rng, counters)
+            _sync(dev)
+            timings["matching"] = timings.get("matching", 0.0) + time.perf_counter() - t0
 
-    poses, info, lc_results, n_acc = _solve_two_stage(
-        frames, [f.geo for f in frames], kps_pairs, pair_ids, cap, cfg, rng, timings, counters
-    )
+        t0 = time.perf_counter()
+        kps_pairs, cap = _assemble_pairs(frames, corres_rows, pair_ids, cfg, use_anno)
+        timings["kps_assembly"] = timings.get("kps_assembly", 0.0) + time.perf_counter() - t0
+
+        if cfg.estimator == "full_ba":
+            poses, info, n_acc = _solve_full_ba(frames, geo_list, kps_pairs, pair_ids, cfg, init_poses, it,
+                                                rng, timings, counters)
+            init_poses = poses
+        else:
+            poses, info, lc_results, n_acc = _solve_two_stage(frames, geo_list, kps_pairs, pair_ids, cap, cfg,
+                                                              rng, timings, counters)
 
     t0 = time.perf_counter()
     offsets = np.cumsum([0] + [int(f.dr_poses.shape[0]) for f in frames])
@@ -380,6 +569,7 @@ def run_slam(
     t0 = time.perf_counter()
     err0, err = torch.stack([info.error0, info.error]).cpu().tolist()
     timings["result_fetch"] = time.perf_counter() - t0
+    max_it = cfg.full_ba.max_iters if cfg.estimator == "full_ba" else cfg.pose_graph.max_gn_iters
     result = SlamResult(
         poses=poses,
         frame_slices=frame_slices,
@@ -394,10 +584,10 @@ def run_slam(
         solve_error=float(err),
         timings=timings,
         counters=counters,
-        solve_capped=info.iterations >= cfg.pose_graph.max_gn_iters and info.stall == 0,
+        solve_capped=info.iterations >= max_it and info.stall == 0,
     )
     if out_dir is not None:
-        from diasss_tpu.dumps import write_reference_dumps
+        from .dumps import write_reference_dumps
 
         write_reference_dumps(out_dir, result, kps_pairs)
     return result

@@ -16,7 +16,7 @@ from typing import NamedTuple
 
 import torch
 
-from diasss_tpu.config import KeypointNoiseConfig, LoopClosureConfig
+from ..config import KeypointNoiseConfig, LoopClosureConfig
 
 from ..factors.between import between_residual
 from ..factors.sss_point import kp_noise_sigmas, sss_point_residual

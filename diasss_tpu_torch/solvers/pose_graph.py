@@ -23,7 +23,7 @@ import numpy as np
 import torch
 from torch.func import jvp, vmap
 
-from diasss_tpu.config import PoseGraphConfig
+from ..config import PoseGraphConfig
 
 from ..factors.between import between_residual
 from ..geometry import se3

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from diasss_tpu.config import KeypointNoiseConfig, LoopClosureConfig
+from ..config import KeypointNoiseConfig, LoopClosureConfig
 
 from ..factors.sss_point import kp_noise_sigmas, sss_point_residual
 from ..geometry import se3

@@ -22,7 +22,7 @@ import numpy as np
 import pytest
 import torch
 
-import torch_parity_helpers  # noqa: F401  (thread settings)
+from torch_parity_helpers import port_cfg
 from diasss_tpu.config import DetectorConfig, MaskConfig
 from diasss_tpu.features import detector as jdet
 from diasss_tpu.features import orient as jorient
@@ -53,7 +53,7 @@ def waterfall():
 def detections(waterfall):
     norm, mask = waterfall
     j = jdet.detect_features(jnp.asarray(norm), jnp.asarray(mask), CFG)
-    t = detector.detect_features(_T(norm), _T(mask), CFG)
+    t = detector.detect_features(_T(norm), _T(mask), port_cfg(CFG))
     return {f: np.asarray(getattr(j, f)) for f in j._fields}, {f: getattr(t, f).numpy() for f in t._fields}
 
 
@@ -64,7 +64,7 @@ def test_normalize_and_mask_exact_on_integer_images(shape):
     raw[rng.integers(0, shape[0], 20), rng.integers(0, shape[1], 20)] = 250.0  # bright kills
     cfg = MaskConfig(side_pings=20)
     np.testing.assert_array_equal(normalize_sss(_T(raw)).numpy(), np.asarray(jax_normalize_sss(jnp.asarray(raw))))
-    np.testing.assert_array_equal(filtered_mask(_T(raw), cfg).numpy(),
+    np.testing.assert_array_equal(filtered_mask(_T(raw), port_cfg(cfg)).numpy(),
                                   np.asarray(jax_filtered_mask(jnp.asarray(raw), cfg)))
 
 
@@ -141,4 +141,4 @@ def test_stacked_layout_and_other_descriptors_raise():
     with pytest.raises(NotImplementedError, match="not-to-port"):
         detector.detect_features(img, stacked=True)
     with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        detector.detect_features(img, cfg=DetectorConfig(descriptor="orb"))
+        detector.detect_features(img, cfg=port_cfg(DetectorConfig(descriptor="orb")))

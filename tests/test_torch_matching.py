@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity_helpers import JaxRng, jax_and_port_frames, small_survey
+from torch_parity_helpers import JaxRng, jax_and_port_frames, port_cfg, small_survey
 from diasss_tpu.config import DetectorConfig, MatcherConfig
 from diasss_tpu.features import detect_features as jax_detect
 from diasss_tpu.matching import geosearch as jgeo
@@ -56,11 +56,11 @@ def test_nn_core_identical(name):
     cfg = CONFIGS[name]
     args = _nn_inputs(1)
     ref = jgeo.nn_core(*[jnp.asarray(a) for a in args], jnp.asarray(np.float32(cfg.sift_dist_bound)), cfg)
-    ours = geosearch.nn_core(*[_T(a) for a in args], cfg.sift_dist_bound, cfg)
+    ours = geosearch.nn_core(*[_T(a) for a in args], cfg.sift_dist_bound, port_cfg(cfg))
     assert (np.asarray(ref.corres) >= 0).sum() > 5
     np.testing.assert_array_equal(ours.corres.numpy(), np.asarray(ref.corres))
     np.testing.assert_array_equal(ours.n_candidates.numpy(), np.asarray(ref.n_candidates))
-    single = geosearch.geo_nn_search(*[_T(a) for a in args], cfg)
+    single = geosearch.geo_nn_search(*[_T(a) for a in args], port_cfg(cfg))
     np.testing.assert_array_equal(single.corres.numpy(), np.asarray(jgeo.geo_nn_search(*[jnp.asarray(a) for a in args], cfg).corres))
 
 
@@ -79,7 +79,7 @@ def test_scc_filter_identical_on_same_samples(mode):
     ref = jscc.scc_filter(jnp.asarray(yq), jnp.asarray(yr), jnp.asarray(corres), jnp.asarray(True),
                           jnp.asarray(300.0), key, cfg, kp_x_q=jnp.asarray(xq), kp_x_r=jnp.asarray(xr))
     ours = scc.scc_filter(_T(yq), _T(yr), _T(corres).long(), torch.tensor(True), torch.tensor(300.0),
-                          JaxRng(cfg.rng_seed), cfg, kp_x_q=_T(xq), kp_x_r=_T(xr))
+                          JaxRng(cfg.rng_seed), port_cfg(cfg), kp_x_q=_T(xq), kp_x_r=_T(xr))
     np.testing.assert_array_equal(ours.corres.numpy(), np.asarray(ref.corres))
     assert int(ours.inlier_count) == int(ref.inlier_count)
     assert float(ours.model_x) == float(ref.model_x)
@@ -101,8 +101,9 @@ def test_robust_matching_stacked_identical_rows(detected, name):
     pairs = [(0, 1), (1, 2), (0, 2)]
     ref = jrobust.robust_matching_stacked(pairs, [0, 1, 2], feats, [f.geo for f in jf],
                                           [f.raw.shape[0] for f in jf], cfg=cfg)
-    ours = robust.robust_matching_stacked(pairs, [0, 1, 2], [to_torch(f) for f in feats], [f.geo for f in tf],
-                                          [int(f.raw.shape[0]) for f in tf], JaxRng(cfg.rng_seed), cfg=cfg)
+    ours = robust.robust_matching_stacked(pairs, [0, 1, 2], [to_torch(f, device="cpu") for f in feats],
+                                          [f.geo for f in tf], [int(f.raw.shape[0]) for f in tf],
+                                          JaxRng(cfg.rng_seed), cfg=port_cfg(cfg))
     for key in pairs:
         assert ours[key].n_matches == ref[key].n_matches
         np.testing.assert_array_equal(ours[key].rows_s, ref[key].rows_s)
@@ -118,8 +119,9 @@ def test_robust_matching_per_pair_identical_rows(detected):
     jf, tf, feats = detected
     ref = jrobust.robust_matching(1, 2, feats[1], feats[2], jf[1].geo, jf[2].geo, jf[1].raw.shape[0],
                                   jf[2].raw.shape[0], cfg=cfg)
-    ours = robust.robust_matching(1, 2, to_torch(feats[1]), to_torch(feats[2]), tf[1].geo, tf[2].geo,
-                                  int(tf[1].raw.shape[0]), int(tf[2].raw.shape[0]), JaxRng(cfg.rng_seed), cfg=cfg)
+    ours = robust.robust_matching(1, 2, to_torch(feats[1], device="cpu"), to_torch(feats[2], device="cpu"),
+                                  tf[1].geo, tf[2].geo, int(tf[1].raw.shape[0]), int(tf[2].raw.shape[0]),
+                                  JaxRng(cfg.rng_seed), cfg=port_cfg(cfg))
     assert ours.n_matches == ref.n_matches > 0
     np.testing.assert_array_equal(ours.rows_s, ref.rows_s)
 
@@ -129,7 +131,7 @@ def test_other_metrics_raise_naming_roadmap(metric):
     cfg = MatcherConfig(desc_metric=metric)
     args = [_T(a) for a in _nn_inputs(3, 16, 16)]
     with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        geosearch.nn_core(*args, 1.0, cfg)
+        geosearch.nn_core(*args, 1.0, port_cfg(cfg))
 
 
 def test_torch_rng_draws_only_matched_positions_and_is_seeded():

@@ -18,8 +18,8 @@ import json
 import numpy as np
 import pytest
 
-from torch_parity_helpers import JaxRng, jax_and_port_frames, small_survey
-from diasss_tpu.config import DetectorConfig, MatcherConfig, PipelineConfig, PoseGraphConfig
+from torch_parity_helpers import JaxRng, jax_and_port_frames, port_cfg, small_survey
+from diasss_tpu.config import DetectorConfig, FullBAConfig, MatcherConfig, PipelineConfig, PoseGraphConfig
 from diasss_tpu.features import detect_features as jax_detect
 from diasss_tpu.pipeline import run_slam as jax_run_slam
 from diasss_tpu_torch.convert import to_torch
@@ -52,7 +52,7 @@ def test_annotation_run_matches_jax(survey, frames, tmp_path):
     jf, tf = frames
     gt = [l.gt_poses for l in survey.lines]
     ref = jax_run_slam(jf, ANNOTATED, gt_rows_list=gt, out_dir=str(tmp_path / "jax"))
-    ours = run_slam(tf, ANNOTATED, gt_rows_list=gt, out_dir=str(tmp_path / "port"), rng=JaxRng())
+    ours = run_slam(tf, port_cfg(ANNOTATED), gt_rows_list=gt, out_dir=str(tmp_path / "port"), rng=JaxRng())
     assert ours.pair_ids == ref.pair_ids
     assert ours.n_lc_accepted == ref.n_lc_accepted > 0
     assert abs(ours.ate_dr - ref.ate_dr) < 1e-5
@@ -75,9 +75,9 @@ def detected_runs(survey, frames, tmp_path_factory):
     out = tmp_path_factory.mktemp("detected")
     feats = [jax_detect(f.norm, f.mask, DETECTED.detector) for f in jf]
     ref = jax_run_slam(jf, DETECTED, gt_rows_list=gt, out_dir=str(out / "jax"), run_eval2=False, feats=feats)
-    fed = run_slam(tf, DETECTED, gt_rows_list=gt, out_dir=str(out / "port"), run_eval2=False,
-                   feats=[to_torch(f) for f in feats], rng=JaxRng())
-    own = run_slam(tf, DETECTED, gt_rows_list=gt, run_eval2=False, rng=JaxRng())
+    fed = run_slam(tf, port_cfg(DETECTED), gt_rows_list=gt, out_dir=str(out / "port"), run_eval2=False,
+                   feats=[to_torch(f, device="cpu") for f in feats], rng=JaxRng())
+    own = run_slam(tf, port_cfg(DETECTED), gt_rows_list=gt, run_eval2=False, rng=JaxRng())
     return out, ref, fed, own
 
 
@@ -101,20 +101,21 @@ def test_detected_run_through_port_detector(detected_runs):
 
 
 @pytest.mark.parametrize("cfg, item", [
-    (PipelineConfig(estimator="full_ba"), "A10"),
+    (PipelineConfig(estimator="full_ba", full_ba=FullBAConfig(marginals=True)), "A9"),
     (PipelineConfig(mesh_devices=4), "A14"),
     (PipelineConfig(pose_graph=PoseGraphConfig(marginals=True)), "A9"),
-    (PipelineConfig(matcher=MatcherConfig(mode="dense"), pose_graph=PoseGraphConfig(use_anno=False)), "A12"),
-    (PipelineConfig(rematch_iters=1, pose_graph=PoseGraphConfig(use_anno=False)), "A12"),
+    (PipelineConfig(estimator="full_ba", full_ba=FullBAConfig(preconditioner="dense_seg")), "A7"),
+    (PipelineConfig(detector=DetectorConfig(descriptor="geo_patch"), pose_graph=PoseGraphConfig(use_anno=False)),
+     "A11"),
 ])
 def test_unported_options_raise_naming_roadmap(frames, cfg, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        run_slam(frames[1], cfg)
+        run_slam(frames[1], port_cfg(cfg))
 
 
 @pytest.fixture(scope="module")
 def survey_dirs(tmp_path_factory):
-    from diasss_tpu.io import save_survey
+    from diasss_tpu_torch.io import save_survey
 
     survey = small_survey(n_lines=2, n_pings=120, n_bins=256, n_landmarks=30, seed=2)
     out = tmp_path_factory.mktemp("survey")
@@ -140,8 +141,8 @@ def test_cli_runs_and_writes_metrics(survey_dirs, tmp_path):
 
 @pytest.mark.parametrize("flags, item", [
     (["--metrics", "m.json"], "A9"),
-    (["--estimator", "full_ba"], "A10"),
-    (["--auto"], "A12"),
+    (["--online"], "A13"),
+    (["--mesh", "2"], "A14"),
     (["--detected", "--descriptor", "orb"], "A11"),
 ])
 def test_cli_rejects_unported_flags(survey_dirs, capsys, flags, item):

@@ -19,7 +19,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity_helpers import JaxRng, jax_and_port_frames, small_survey
+from torch_parity_helpers import JaxRng, jax_and_port_frames, port_cfg, small_survey
 from diasss_tpu.config import LoopClosureConfig, PipelineConfig, PoseGraphConfig
 from diasss_tpu.geometry import se3 as jse3
 from diasss_tpu.pipeline import _assemble_pairs as jax_assemble_pairs
@@ -161,7 +161,7 @@ def graph_problem():
     valid = np.array([True, True, True, False])
     cfg = PoseGraphConfig(preconditioner="direct")
     jg = jpg.build_chain_graph(rows, lc_i, lc_j, meas, sig, valid, cfg, noise_key=jax.random.PRNGKey(cfg.seed))
-    tg = pose_graph.build_chain_graph(rows, lc_i, lc_j, se3.Pose3(_T(meas.R), _T(meas.t)), sig, valid, cfg,
+    tg = pose_graph.build_chain_graph(rows, lc_i, lc_j, se3.Pose3(_T(meas.R), _T(meas.t)), sig, valid, port_cfg(cfg),
                                       rng=JaxRng(noise_seed=cfg.seed))
     return jg, tg, cfg, P
 
@@ -176,7 +176,7 @@ def test_chain_graph_noise_matches_jax(graph_problem):
 def test_direct_pose_graph_solve_matches_jax(graph_problem):
     jg, tg, cfg, P = graph_problem
     jposes, jinfo = jpg.solve_pose_graph(jg, cfg)
-    poses, info = pose_graph.solve_pose_graph(tg, cfg)
+    poses, info = pose_graph.solve_pose_graph(tg, port_cfg(cfg))
     assert float(info.error) < 1e-2 * float(info.error0)
     np.testing.assert_allclose(float(info.error), float(jinfo.error), rtol=1e-3)
     np.testing.assert_allclose(poses.t.numpy(), np.asarray(jposes.t), atol=1e-3)
@@ -203,4 +203,4 @@ def test_unported_solver_kinds_raise(cfg, n_lc):
 def test_damping_sweep_is_not_ported(graph_problem):
     _, tg, cfg, _ = graph_problem
     with pytest.raises(NotImplementedError, match="not-to-port"):
-        pose_graph.solve_pose_graph(tg, dataclasses.replace(cfg, lam_sweep_factors=(0.1, 1.0, 10.0)))
+        pose_graph.solve_pose_graph(tg, dataclasses.replace(port_cfg(cfg), lam_sweep_factors=(0.1, 1.0, 10.0)))

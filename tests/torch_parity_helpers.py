@@ -10,9 +10,16 @@
   alternates the two keys;
 * initial noise: ``normal(PRNGKey(PoseGraphConfig.seed), (P, 6))``
   (``diasss_tpu/pipeline.py:659-663``, ``solvers/pose_graph.py:664``).
+
+:func:`port_cfg` rebuilds a JAX-package config as the port's config of the
+same name, field by field: the parity tests hand the JAX side a JAX config
+and the port a port config.
 """
 
+
 from __future__ import annotations
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -47,6 +54,16 @@ class JaxRng:
         return torch.as_tensor(np.array(jax.random.normal(self._noise_key, tuple(shape))))
 
 
+def port_cfg(cfg):
+    """The port's config dataclass equal, field by field, to the JAX
+    package's ``cfg`` (recursively)."""
+    from diasss_tpu_torch import config as pc
+
+    cls = getattr(pc, type(cfg).__name__)
+    return cls(**{f.name: port_cfg(getattr(cfg, f.name)) if dataclasses.is_dataclass(getattr(cfg, f.name))
+                  else getattr(cfg, f.name) for f in dataclasses.fields(cfg)})
+
+
 def small_survey(n_lines=3, n_pings=150, n_bins=256, n_landmarks=40, seed=7):
     return make_survey(n_lines=n_lines, n_pings=n_pings, n_bins=n_bins, n_landmarks=n_landmarks, seed=seed)
 
@@ -62,4 +79,4 @@ def jax_and_port_frames(survey):
     from diasss_tpu_torch.convert import to_torch
 
     jf = build_keyframes_batch(frame_items(survey))
-    return jf, [to_torch(f) for f in jf]
+    return jf, [to_torch(f, device="cpu") for f in jf]
