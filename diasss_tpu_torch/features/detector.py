@@ -1,9 +1,11 @@
 """Feature detector orchestration — the ORBextractor::operator() equivalent.
 
 Counterpart of :mod:`diasss_tpu.features.detector`, per-level layout only.
-Per pyramid level: FAST-9 at two thresholds (cells with no corner at the
-initial threshold fall back to the minimum threshold), 3x3 NMS, cell-tiled
-top-K selection with a per-cell cap, intensity-centroid orientation, and SIFT
+FAST-9 at two thresholds with the 3-px frame zeroed and 3x3 NMS for every
+pyramid level of the frame in one :func:`.fast.fast_two_threshold` call (one
+kernel launch on the card); then per level: cells with no corner at the
+initial threshold fall back to the minimum threshold, cell-tiled top-K
+selection with a per-cell cap, intensity-centroid orientation, and SIFT
 descriptors on the blurred level.  Keypoint capacity is static
 (``n_features``) with a validity mask.
 
@@ -22,13 +24,12 @@ import torch.nn.functional as F
 
 from ..config import DetectorConfig
 
-from .fast import fast_score, nms3
+from .fast import fast_two_threshold
 from .orient import ic_angles
 from .pyramid import build_pyramid, gaussian_blur
 from .sift import sift_descriptors
 
 PATCH_SIZE = 31  # ORBextractor.cpp PATCH_SIZE
-FAST_FRAME = 3  # FAST circle radius: scores this close to the border are junk
 
 
 class DetectedFeatures(NamedTuple):
@@ -65,15 +66,6 @@ def top_k(x: torch.Tensor, k: int):
     among equal values."""
     vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
     return vals[..., :k], idx[..., :k]
-
-
-def _frame_mask(score: torch.Tensor, h: int, w: int) -> torch.Tensor:
-    """Zero scores inside the 3-px FAST frame of the (h, w) extent."""
-    n, m = score.shape
-    rows = torch.arange(n, device=score.device)[:, None]
-    cols = torch.arange(m, device=score.device)[None, :]
-    ok = (rows >= FAST_FRAME) & (rows < h - FAST_FRAME) & (cols >= FAST_FRAME) & (cols < w - FAST_FRAME)
-    return torch.where(ok, score, torch.zeros_like(score))
 
 
 def _select_keypoints(score: torch.Tensor, k_level: int, cell_size: int, cell_cap: int,
@@ -120,19 +112,11 @@ def _combine_two_threshold(s_hi: torch.Tensor, s_lo: torch.Tensor, cell_size: in
     return torch.where(full, s_hi, s_lo)
 
 
-def _two_threshold_score(img, ini_t: float, min_t: float, cell_size: int):
-    n, m = img.shape
-    s_hi = nms3(_frame_mask(fast_score(img, ini_t), n, m))
-    s_lo = nms3(_frame_mask(fast_score(img, min_t), n, m))
-    return _combine_two_threshold(s_hi, s_lo, cell_size)
-
-
-def _detect_level(limg: torch.Tensor, lvl: int, k_level: int, cfg: DetectorConfig) -> DetectedFeatures:
+def _detect_level(limg: torch.Tensor, scores, lvl: int, k_level: int, cfg: DetectorConfig) -> DetectedFeatures:
+    """Keypoints of one level from its ``(s_hi, s_lo)`` FAST maps."""
     scale = cfg.scale_factor**lvl
     n, m = limg.shape
-    score = _two_threshold_score(
-        limg, float(cfg.ini_fast_threshold), float(cfg.min_fast_threshold), cfg.cell_size
-    )
+    score = _combine_two_threshold(*scores, cfg.cell_size)
     cap = _cell_cap(n, m, k_level, cfg.cell_size)
     xy, resp, valid = _select_keypoints(score, k_level, cfg.cell_size, cap, cfg.edge_threshold)
     ang = ic_angles(limg, xy)
@@ -179,11 +163,10 @@ def detect_features(
     img = norm_img.to(torch.float32)
     per_level = features_per_level(cfg.n_features, cfg.n_levels, cfg.scale_factor)
     levels = build_pyramid(img, cfg.n_levels, cfg.scale_factor)
-    parts = [
-        _detect_level(limg, lvl, k_level, cfg)
-        for lvl, (limg, k_level) in enumerate(zip(levels, per_level))
-        if k_level > 0
-    ]
+    used = [lvl for lvl, k_level in enumerate(per_level) if k_level > 0]
+    scores = fast_two_threshold([levels[lvl].contiguous() for lvl in used], float(cfg.ini_fast_threshold),
+                                float(cfg.min_fast_threshold))
+    parts = [_detect_level(levels[lvl], s, lvl, per_level[lvl], cfg) for lvl, s in zip(used, scores)]
     feats = DetectedFeatures(*[torch.cat([getattr(p, f) for p in parts]) for f in DetectedFeatures._fields])
     if mask is not None:
         xi = torch.clamp(feats.xy[:, 0].to(torch.int64), 0, mask.shape[1] - 1)

@@ -3,21 +3,26 @@
 Replaces the TPU kernel ``diasss_tpu/features/fast_pallas.py:_fast_tile_kernel``.
 The source is compiled at first use by :mod:`.._nvcc` into
 ``build/diasss_tpu_torch/libfast9.so`` and bound with ``ctypes`` through its
-plain C entry point
-``int fast9_score(const float*, float*, int n, int m, float thr, void* stream)``.
+plain C entry point ``int fast9_two_threshold(int L, const long long* img,
+const long long* out, const int* n, const int* m, float ini_t, float min_t,
+void* stream)``: one launch computes every pyramid level of a frame at both
+thresholds, with the FAST frame zeroed and 3x3 non-maximum suppression.
 
-``launches`` counts kernel launches made through :func:`fast9_score`; callers
-(the chip smoke test) reset and read it to prove a run went through the kernel.
+``launches`` counts kernel launches made through
+:func:`fast9_two_threshold`; callers (the chip smoke test) reset and read it
+to prove a run went through the kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
 import threading
+from typing import List, Sequence, Tuple
 
 import torch
 
 from .. import _nvcc
+from .fast import check_levels
 
 SOURCE = _nvcc.CSRC / "fast9.cu"
 LIBRARY = _nvcc.library(SOURCE)
@@ -34,36 +39,39 @@ def _load():
         if _lib is None:
             _nvcc.build(SOURCE)
             lib = ctypes.CDLL(str(LIBRARY))
-            lib.fast9_score.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                                        ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
-            lib.fast9_score.restype = ctypes.c_int
+            lib.fast9_two_threshold.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [
+                ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
+            lib.fast9_two_threshold.restype = ctypes.c_int
             _lib = lib
     return _lib
 
 
-def fast9_score(img: torch.Tensor, threshold: float) -> torch.Tensor:
-    """FAST-9 score map of a 2-D contiguous float32 CUDA tensor, computed by
-    the CUDA kernel on the current stream.  Raises on any other input."""
+def fast9_two_threshold(levels: Sequence[torch.Tensor], ini_t: float,
+                        min_t: float) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """Per level ``(s_hi, s_lo)``: the FAST-9 score at ``ini_t`` and at
+    ``min_t``, 3-px frame zeroed, 3x3 non-maximum suppressed; one kernel
+    launch on the current stream for all levels of CUDA tensors.  Both maps
+    of every level are views of one flat output.  Raises on any other
+    input."""
     global launches
-    if img.dtype != torch.float32:
-        raise TypeError(f"fast9_score takes float32, got {img.dtype}")
-    if img.dim() != 2:
-        raise ValueError(f"fast9_score takes a 2-D image, got shape {tuple(img.shape)}")
-    if not img.is_contiguous():
-        raise ValueError("fast9_score takes a contiguous image")
-    if img.device.type != "cuda":
-        raise ValueError(f"fast9_score runs on a CUDA tensor, got device {img.device}")
-    n, m = img.shape
-    if n > 65535 * 8:  # gridDim.y limit with 8-row blocks
-        raise ValueError(f"fast9_score takes at most {65535 * 8} rows, got {n}")
+    check_levels(levels)
+    dev = levels[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"fast9_two_threshold runs on CUDA tensors, got device {dev}")
+    sizes = [img.numel() for img in levels]
+    flat = torch.empty(2 * sum(sizes), dtype=torch.float32, device=dev)
+    planes = flat.split([2 * size for size in sizes])  # per level (s_hi, s_lo)
+    L = len(levels)
     lib = _load()
-    out = torch.empty_like(img)
-    if img.numel() == 0:
-        return out
-    with torch.cuda.device(img.device):
-        stream = torch.cuda.current_stream(img.device).cuda_stream
-        rc = lib.fast9_score(img.data_ptr(), out.data_ptr(), n, m, float(threshold), stream)
+    img_p = (ctypes.c_longlong * L)(*[img.data_ptr() for img in levels])
+    out_p = (ctypes.c_longlong * L)(*[plane.data_ptr() for plane in planes])
+    n_p = (ctypes.c_int * L)(*[int(img.shape[0]) for img in levels])
+    m_p = (ctypes.c_int * L)(*[int(img.shape[1]) for img in levels])
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.fast9_two_threshold(L, img_p, out_p, n_p, m_p, float(ini_t), float(min_t), stream)
     if rc != 0:
-        raise RuntimeError(f"fast9_score launch failed with cudaError {rc}")
+        raise RuntimeError(f"fast9_two_threshold launch failed with cudaError {rc} "
+                           f"(shapes {[tuple(img.shape) for img in levels]})")
     launches += 1
-    return out
+    return [tuple(plane.view(2, *img.shape).unbind(0)) for plane, img in zip(planes, levels)]

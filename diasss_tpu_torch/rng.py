@@ -29,13 +29,13 @@ class TorchRng:
     seeded from ``MatcherConfig.rng_seed`` (SCC) and ``PoseGraphConfig.seed``
     (initial noise)."""
 
-    def __init__(self, matcher_seed: int, noise_seed: int, device="cpu"):
+    def __init__(self, matcher_seed: int, noise_seed: int, device="cuda"):
         self.device = torch.device(device)
         self._scc = torch.Generator(device=self.device).manual_seed(int(matcher_seed))
         self._noise = torch.Generator(device=self.device).manual_seed(int(noise_seed))
 
     @classmethod
-    def from_config(cls, cfg, device="cpu") -> "TorchRng":
+    def from_config(cls, cfg, device="cuda") -> "TorchRng":
         return cls(cfg.matcher.rng_seed, cfg.pose_graph.seed, device)
 
     def categorical_matched(self, matched_mask, n_hyp, n_samples):

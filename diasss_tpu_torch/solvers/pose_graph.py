@@ -212,7 +212,7 @@ def solve_pose_graph(graph: PoseGraph, cfg: PoseGraphConfig = PoseGraphConfig())
 
 
 def build_chain_graph(dr_rows_list, lc_i, lc_j, lc_meas: se3.Pose3, lc_sigmas, lc_valid,
-                      cfg: PoseGraphConfig = PoseGraphConfig(), rng=None, device="cpu") -> PoseGraph:
+                      cfg: PoseGraphConfig = PoseGraphConfig(), rng=None, device="cuda") -> PoseGraph:
     """The global PoseGraph from per-frame DR rows + LC factors.  Odometry
     measurements are the exact DR relative poses; initial values get the
     reference's injected Gaussian noise (first pose exact) when ``rng`` is

@@ -136,6 +136,23 @@ def test_qcorr_plain_matches_pallas_interpret():
     np.testing.assert_allclose(B0.numpy(), np.asarray(B1), atol=2e-5)
 
 
+def test_qcorr_plain_within_1e5_of_the_float64_sum():
+    """Why the card's kernel is held to 2e-5 of ``qcorr_plain``: both sum the
+    same 289 terms |q_g W_g| <= 1 in float32 (the kernel with fused
+    multiply-adds), and each stays within 1e-5 of the float64 sum."""
+    K, k, T = 40, 17, 43
+    S = T + k - 1
+    rng = np.random.default_rng(4)
+    Wh = (rng.uniform(size=(K, S, S)) > 0.1).astype(np.float32)
+    Wvh = rng.uniform(0, 1, (K, S, S)).astype(np.float32) * Wh
+    q = rng.normal(0, 1, (K, k * k)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    A, B = dense.qcorr_plain(_T(Wvh), _T(Wh), _T(q), k, T)
+    A64, B64 = dense.qcorr_plain(_T(Wvh).double(), _T(Wh).double(), _T(q).double(), k, T)
+    err = max(float((A.double() - A64).abs().max()), float((B.double() - B64).abs().max()))
+    assert 0.0 < err < 1e-5, err
+
+
 @pytest.mark.parametrize("bad, exc", [
     (dict(Wvh=torch.zeros(2, 20, 20, dtype=torch.float64)), TypeError),
     (dict(q=torch.zeros(2, 16)), ValueError),

@@ -8,6 +8,8 @@ distances feeding them differ only in the last ulp (GEMM order), far from
 any accept threshold on these inputs.
 """
 
+import inspect
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -134,15 +136,24 @@ def test_other_metrics_raise_naming_roadmap(metric):
         geosearch.nn_core(*args, 1.0, port_cfg(cfg))
 
 
+def test_public_constructors_default_to_the_card():
+    from diasss_tpu_torch.convert import to_torch
+    from diasss_tpu_torch.frame import build_keyframe, build_keyframes_batch
+    from diasss_tpu_torch.solvers.pose_graph import build_chain_graph
+
+    for fn in (TorchRng, TorchRng.from_config, build_chain_graph, build_keyframe, build_keyframes_batch, to_torch):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+
+
 def test_torch_rng_draws_only_matched_positions_and_is_seeded():
     mask = torch.zeros(3, 50, dtype=torch.bool)
     mask[0, [3, 17, 40]] = True
     mask[1, 49] = True
-    a = TorchRng(1, 0).categorical_matched(mask, 500, 3)
-    b = TorchRng(1, 0).categorical_matched(mask, 500, 3)
+    a = TorchRng(1, 0, device="cpu").categorical_matched(mask, 500, 3)
+    b = TorchRng(1, 0, device="cpu").categorical_matched(mask, 500, 3)
     assert a.shape == (3, 500, 3) and torch.equal(a, b)
     assert set(a[0].unique().tolist()) == {3, 17, 40}
     assert set(a[1].unique().tolist()) == {49}
     assert int(a[2].min()) >= 0 and int(a[2].max()) < 50  # no match: any in-range index
-    n1, n2 = TorchRng(1, 5).normal((4, 6)), TorchRng(1, 5).normal((4, 6))
+    n1, n2 = TorchRng(1, 5, device="cpu").normal((4, 6)), TorchRng(1, 5, device="cpu").normal((4, 6))
     assert n1.dtype == torch.float32 and torch.equal(n1, n2)

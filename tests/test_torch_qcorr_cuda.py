@@ -7,10 +7,12 @@ suite's conftest (which imports jax) is skipped:
 
     python -m pytest --noconftest -m cuda tests/test_torch_qcorr_cuda.py
 
-Tolerance: none.  The kernel sums over the patch cells in the same
-ascending order as ``qcorr_plain`` and rounds every product and every sum
-separately (no fused multiply-add), as the plain version's separate torch
-multiply and add do.
+Tolerance: max abs error 2e-5.  Both sum the same k*k terms per output cell
+in the same ascending order, but the kernel takes each step as one fused
+multiply-add where ``qcorr_plain`` rounds the product and the sum
+separately.  Every term is |q_g W_g| <= 1 (windows in [0, 1], unit-norm q),
+and each version stays within 1e-5 of the float64 sum over 289 steps
+(tests/test_torch_dense.py holds ``qcorr_plain`` to that on the CPU).
 """
 
 import numpy as np
@@ -18,6 +20,8 @@ import pytest
 import torch
 
 from diasss_tpu_torch.matching import dense, dense_cuda
+
+TOL = 2e-5
 
 
 @pytest.fixture
@@ -37,19 +41,22 @@ def _inputs(K, k, T, device, seed=0):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("K, k, T", [(12000, 17, 43), (12000, 17, 19), (64, 17, 123), (5, 3, 7)])
+@pytest.mark.parametrize("K, k, T", [(12000, 17, 43), (12000, 17, 19), (64, 17, 123), (5, 3, 7), (9, 5, 10),
+                                     (7, 17, 1)])
 def test_cuda_kernel_equals_plain(cuda_device, K, k, T):
     """Round 0 and the 8-cell re-match round of the automatic profile, a
-    window of S = 139 (past 48 KB of shared memory), and a tiny shape."""
+    window of S = 139 (past 48 KB of shared memory), the generic path at two
+    other patch sizes, and a single offset."""
     Wvh, Wh, q = _inputs(K, k, T, cuda_device)
     before = dense_cuda.launches
     A, B = dense_cuda.qcorr_cuda(Wvh, Wh, q, k, T)
     assert dense_cuda.launches == before + 1
     A0, B0 = dense.qcorr_plain(Wvh, Wh, q, k, T)
     torch.cuda.synchronize()
-    assert torch.equal(A, A0) and torch.equal(B, B0)
+    err = max(float((A - A0).abs().max()), float((B - B0).abs().max()))
+    assert err <= TOL, err
     A2, B2 = dense.qcorr(Wvh, Wh, q, k, T)
-    assert torch.equal(A2, A) and torch.equal(B2, B)
+    assert torch.equal(A2, A) and torch.equal(B2, B)  # the kernel is deterministic
     assert dense_cuda.launches == before + 2
 
 

@@ -162,7 +162,7 @@ def graph_problem():
     cfg = PoseGraphConfig(preconditioner="direct")
     jg = jpg.build_chain_graph(rows, lc_i, lc_j, meas, sig, valid, cfg, noise_key=jax.random.PRNGKey(cfg.seed))
     tg = pose_graph.build_chain_graph(rows, lc_i, lc_j, se3.Pose3(_T(meas.R), _T(meas.t)), sig, valid, port_cfg(cfg),
-                                      rng=JaxRng(noise_seed=cfg.seed))
+                                      rng=JaxRng(noise_seed=cfg.seed), device="cpu")
     return jg, tg, cfg, P
 
 
