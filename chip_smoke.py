@@ -37,12 +37,24 @@ Phases (every one asserts; nothing is caught):
    more under ``torch.profiler`` (device busy time, top kernels);
 6. the detected two-stage path (the ``--detected`` CLI settings) on the
    5-line, 3000-pose survey: warm-up, then a counted, timed pass;
-7. the annotation two-stage path at 3000 and 12000 poses, and full BA on
+7. the automatic profile with ``full_ba.marginals=True`` (what ``--metrics``
+   runs; this slice's main path through both kernels): launch counts read
+   around it, ``pose_marginals`` seconds, sigma statistics (finite, zero
+   at the gauge pose, positive elsewhere), peak memory; then the
+   estimated-pose mosaic of that run written to a temporary PNG;
+8. the annotation two-stage path at 3000 and 12000 poses, and full BA on
    annotations at 4200 poses (5 lines + 2 tie lines), the last one also
-   profiled.
+   profiled; on the same keyframes, one pass each of the PCG family beside
+   the direct step (3000: ``dense_seg`` and ``tridiag``; 4200:
+   ``dense_seg``; LM trials, CG iterations, solve seconds, ATE gated
+   against the direct pass's) and of the exact pose marginals (12000:
+   ``pose_graph.marginals``; 4200: ``full_ba.marginals``); and the
+   marginals of the 12000-pose chain with 1024 loop closures, their memory
+   envelope.
 
 Before the last line it prints the ``kernels`` JSON line (launches from the
-automatic run; times, device times and bounds measured here) and the
+automatic run with the marginals, per phase beside; times, device times and
+bounds measured here) and the
 card's name and power limit.  The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 There is no CPU path: without CUDA the script exits non-zero.
@@ -50,9 +62,13 @@ There is no CPU path: without CUDA the script exits non-zero.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -69,6 +85,8 @@ B1_INSTR_PER_PIXEL = 160  # fast9.cu: 16 differences, 88 + 32 arc min/max, 4 sco
 QCORR_TOL = 2e-5  # fused multiply-adds against the plain version's separate roundings
 B1_LARGE = (4992, 1280)  # a long waterfall as one level
 QCORR_RANDOM = ((12000, 43), (12000, 19))  # (K, T) of the random windows: round 0 and the 8-cell re-match round
+MAX_LC_MARGINALS = 1024  # loop-closure factors of the marginals envelope: the direct step's limit
+PCG_ATE_GATE = {"two_stage": ("abs", 1e-2), "full_ba": ("rel", 0.05)}  # a PCG pass against the direct pass
 
 
 def check(ok: bool, msg: str) -> None:
@@ -459,7 +477,82 @@ def detected_phase(dev):
     return launches
 
 
-def annotation_phase(dev, card, survey_kw, cfg, label, profile=False):
+@contextlib.contextmanager
+def solver_infos():
+    """Collect the SolveInfo / BAInfo of every global solve run inside."""
+    from diasss_tpu_torch.solvers import full_ba, pose_graph
+
+    infos = []
+    pg_entry, ba_entry = pose_graph.solve_pose_graph, full_ba.solve_full_ba
+
+    def pg(*args, **kwargs):
+        out = pg_entry(*args, **kwargs)
+        infos.append(out[-1])
+        return out
+
+    def ba(*args, **kwargs):
+        out = ba_entry(*args, **kwargs)
+        infos.append(out[-1])
+        return out
+
+    pose_graph.solve_pose_graph, full_ba.solve_full_ba = pg, ba
+    try:
+        yield infos
+    finally:
+        pose_graph.solve_pose_graph, full_ba.solve_full_ba = pg_entry, ba_entry
+
+
+def sigma_summary(result, label) -> str:
+    """Checks the pose sigmas (finite, zero at the gauge pose, positive
+    elsewhere) and describes them: the mean over poses 1.. and the largest
+    horizontal sigma, as the CLI's metrics report them."""
+    sig = result.pose_sigmas
+    check(sig is not None and sig.shape == (int(result.poses.t.shape[0]), 6), f"{label}: no pose sigmas")
+    check(bool(np.isfinite(sig).all()), f"{label}: non-finite pose sigmas")
+    check(bool((sig[0] == 0).all()) and bool((sig[1:] > 0).all()),
+          f"{label}: sigmas not zero at the gauge pose and positive elsewhere")
+    mean = sig[1:].mean(axis=0)
+    max_xy = float(np.sqrt(sig[1:, 3] ** 2 + sig[1:, 4] ** 2).max())
+    return (f"pose_marginals {result.timings['pose_marginals']:.4f} s, sigma mean (r p y x y z) "
+            f"{' '.join(f'{v:.4g}' for v in mean)}, largest xy sigma {max_xy:.4g} m")
+
+
+def timed_pass(frames, cfg, gt, label, card):
+    """One timed ``run_slam`` pass on keyframes already on the card, with
+    the peak device memory and every global solve's info; returns
+    (result, wall, peak bytes, infos)."""
+    from diasss_tpu_torch.pipeline import run_slam
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with solver_infos() as infos:
+        t0 = time.perf_counter()
+        result = run_slam(frames, cfg, gt_rows_list=gt, run_eval2=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    pings = int(result.poses.t.shape[0])
+    check_poses(result, f"{label} {pings}")
+    check(result.ate_est < result.ate_dr,
+          f"{label} {pings}: no improvement over dead reckoning ({result.ate_est} >= {result.ate_dr})")
+    solve_s = result.timings.get("pose_graph", 0.0) + result.timings.get("full_ba", 0.0)
+    print(f"[{label} {pings}] pairs {len(result.pair_ids)}, n_lc_accepted {result.n_lc_accepted}, "
+          f"ATE DR/EST {result.ate_dr:.4f}/{result.ate_est:.4f} m, wall {wall:.3f} s, "
+          f"{pings / wall:.1f} pings/s, solve {solve_s:.4f} s ({'+'.join(i.solver_kind for i in infos)}: "
+          f"LM trials {[i.iterations for i in infos]}, CG iterations {[i.cg_iters_total for i in infos]}), "
+          f"peak device memory {peak / 2**20:.1f} MiB on {card}")
+    print(f"[{label} {pings}] timings {json.dumps({k: round(v, 4) for k, v in result.timings.items()})} "
+          f"counters {json.dumps(result.counters)} solve_capped {result.solve_capped}")
+    if result.pose_sigmas is not None:
+        print(f"[{label} {pings}] {sigma_summary(result, label)}, peak device memory {peak / 2**20:.1f} MiB")
+    return result, wall, peak, infos
+
+
+def annotation_phase(dev, card, survey_kw, cfg, label, profile=False, variants=()):
+    """An annotation cell: warm-up, the timed pass (profiled once more if
+    ``profile``), then one pass of each ``(label, cfg)`` variant on the same
+    survey.  A variant with another preconditioner is a PCG pass, gated
+    against the timed pass's ATE."""
     from diasss_tpu_torch.pipeline import run_slam
     from diasss_tpu_torch.synthetic import make_survey
 
@@ -467,25 +560,91 @@ def annotation_phase(dev, card, survey_kw, cfg, label, profile=False):
     gt = [l.gt_poses for l in survey.lines]
     run_slam(build_frames(survey, dev), cfg, gt_rows_list=gt, run_eval2=False)  # warm-up
     frames = build_frames(survey, dev)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    result = run_slam(frames, cfg, gt_rows_list=gt, run_eval2=False)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated()
-    pings = int(result.poses.t.shape[0])
-    check_poses(result, f"{label} {pings}")
-    check(result.ate_est < result.ate_dr,
-          f"{label} {pings}: no improvement over dead reckoning ({result.ate_est} >= {result.ate_dr})")
-    print(f"[{label} {pings}] pairs {len(result.pair_ids)}, n_lc_accepted {result.n_lc_accepted}, "
-          f"ATE DR/EST {result.ate_dr:.4f}/{result.ate_est:.4f} m, wall {wall:.3f} s, "
-          f"{pings / wall:.1f} pings/s, peak device memory {peak / 2**20:.1f} MiB on {card}")
-    print(f"[{label} {pings}] timings {json.dumps({k: round(v, 4) for k, v in result.timings.items()})} "
-          f"counters {json.dumps(result.counters)} solve_capped {result.solve_capped}")
+    result, wall, _, _ = timed_pass(frames, cfg, gt, label, card)
     if profile:
         frames = build_frames(survey, dev)
-        profiled(f"{label} {pings}", lambda: run_slam(frames, cfg, gt_rows_list=gt, run_eval2=False), wall)
+        profiled(f"{label} {int(result.poses.t.shape[0])}",
+                 lambda: run_slam(frames, cfg, gt_rows_list=gt, run_eval2=False), wall)
+    for v_label, v_cfg in variants:
+        frames = build_frames(survey, dev)
+        res, _, _, infos = timed_pass(frames, v_cfg, gt, v_label, card)
+        solver = v_cfg.full_ba if v_cfg.estimator == "full_ba" else v_cfg.pose_graph
+        if solver.preconditioner != "auto":
+            check(all(i.solver_kind == solver.preconditioner and i.cg_iters_total > 0 for i in infos),
+                  f"{v_label}: solves {[(i.solver_kind, i.cg_iters_total) for i in infos]}")
+            how, tol = PCG_ATE_GATE[v_cfg.estimator]
+            gap = abs(res.ate_est - result.ate_est)
+            check(gap <= (tol * result.ate_est if how == "rel" else tol),
+                  f"{v_label}: ATE {res.ate_est} against the direct pass's {result.ate_est}")
+            print(f"[{v_label}] ATE {res.ate_est:.4f} m beside the direct pass's {result.ate_est:.4f} m "
+                  f"(gap {gap:.2e} m, gate {tol:g}{' relative' if how == 'rel' else ' m'})")
+    return survey, result
+
+
+def marginals_envelope(dev, survey, poses, card, n_lc=MAX_LC_MARGINALS):
+    """``pg_pose_marginals`` at the solved poses of a survey's chain with
+    ``n_lc`` loop-closure factors (the direct step's limit) measured from
+    those poses between pings 100-199 apart: seconds and peak memory of the
+    (6L, 6P) buffers at their largest."""
+    from diasss_tpu_torch.geometry import se3
+    from diasss_tpu_torch.solvers import pose_graph
+
+    P = int(poses.t.shape[0])
+    rng = np.random.default_rng(0)
+    i = rng.integers(1, P - 200, n_lc)
+    j = i + rng.integers(100, 200, n_lc)
+    meas = se3.between(poses[torch.as_tensor(i, device=dev)], poses[torch.as_tensor(j, device=dev)])
+    graph = pose_graph.build_chain_graph([l.dr_poses for l in survey.lines], i, j, meas,
+                                         np.full((n_lc, 6), 0.05, np.float32), np.ones(n_lc, bool), device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    cov = pose_graph.pg_pose_marginals(graph, poses)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    var = torch.diagonal(cov, dim1=1, dim2=2)
+    check(bool(torch.isfinite(cov).all()) and bool((cov[0] == 0).all()) and bool((var[1:] > 0).all()),
+          f"marginals envelope: covariances not finite, or not zero at the gauge pose and positive elsewhere")
+    buf = 6 * n_lc * 6 * P * cov.element_size()
+    print(f"[marginals envelope {P}] L={n_lc} loop closures: pg_pose_marginals {seconds:.4f} s, peak device "
+          f"memory above its inputs {peak / 2**20:.1f} MiB (one (6L, 6P) {cov.dtype} buffer: {buf / 2**20:.1f} MiB) "
+          f"on {card}")
+
+
+def auto_marginals_phase(dev, survey, cfg, gt, card):
+    """The automatic profile with the pose marginals on, the kernels'
+    launches counted around it, and the estimated-pose mosaic of its
+    result written to a temporary file; returns (B1 launches, B2 launches)."""
+    from diasss_tpu_torch.features import fast_cuda
+    from diasss_tpu_torch.matching import dense_cuda
+    from diasss_tpu_torch.mosaic import build_mosaic, save_mosaic_png
+    from diasss_tpu_torch.pipeline import _estimated_geo
+
+    frames = build_frames(survey, dev)
+    fast_cuda.launches = dense_cuda.launches = 0
+    result, _, _, _ = timed_pass(frames, cfg, gt, "auto marginals", card)
+    fast_n, qcorr_n = fast_cuda.launches, dense_cuda.launches
+    rounds = result.counters["match_stacked_pairs"] // len(result.pair_ids)
+    check(qcorr_n == rounds, f"auto marginals: q-correlation kernel launched {qcorr_n} times for {rounds} rounds")
+    check(fast_n == len(frames), f"auto marginals: FAST kernel launched {fast_n} times for {len(frames)} frames")
+    print(f"[auto marginals] FAST launches {fast_n}, q-correlation launches {qcorr_n}")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "mosaic.png")
+        mosaic, x0, y0, res = build_mosaic(frames, geo_list=_estimated_geo(frames, result.poses))
+        save_mosaic_png(path, mosaic)
+        seconds = time.perf_counter() - t0
+        size = os.path.getsize(path)
+    finite = np.isfinite(mosaic)
+    check(bool(finite.any()) and float(mosaic[finite].min()) >= 0 and float(mosaic[finite].max()) <= 255,
+          "mosaic: no finite pixel, or pixels outside [0, 255]")
+    print(f"[mosaic] {mosaic.shape[0]}x{mosaic.shape[1]} cells of {res} m from ({x0:.2f}, {y0:.2f}), "
+          f"{100 * float(finite.mean()):.1f}% with data, PNG {size} bytes, {seconds:.3f} s")
+    return fast_n, qcorr_n
 
 
 def main() -> int:
@@ -493,7 +652,7 @@ def main() -> int:
         print("chip_smoke.py needs a CUDA device: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
     import diasss_tpu_torch  # noqa: F401  (fails outside the repository)
-    from diasss_tpu_torch.config import PipelineConfig, automatic_config
+    from diasss_tpu_torch.config import FullBAConfig, PipelineConfig, PoseGraphConfig, automatic_config
     from diasss_tpu_torch.synthetic import make_survey
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -519,12 +678,27 @@ def main() -> int:
                                                                                       correlate_args)
     del recorded, correlate_args
     fast_auto, qcorr_auto = auto_phase(dev, auto_survey, auto_cfg, auto_gt, card)
+    marg_cfg = dataclasses.replace(auto_cfg, full_ba=dataclasses.replace(auto_cfg.full_ba, marginals=True))
+    fast_marg, qcorr_marg = auto_marginals_phase(dev, auto_survey, marg_cfg, auto_gt, card)
 
     fast_detected = detected_phase(dev)
-    annotation_phase(dev, card, {**SURVEY, "n_lines": 5}, PipelineConfig(), "anno")
-    annotation_phase(dev, card, {**SURVEY, "n_lines": 20}, PipelineConfig(), "anno")
-    annotation_phase(dev, card, BA_SURVEY, PipelineConfig(min_overlap=0.1, estimator="full_ba"), "full_ba anno",
-                     profile=True)
+
+    def pg(**kw):
+        return PipelineConfig(pose_graph=PoseGraphConfig(**kw))
+
+    def ba(**kw):
+        return PipelineConfig(min_overlap=0.1, estimator="full_ba", full_ba=FullBAConfig(**kw))
+
+    annotation_phase(dev, card, {**SURVEY, "n_lines": 5}, PipelineConfig(), "anno",
+                     variants=[("anno dense_seg", pg(preconditioner="dense_seg")),
+                               ("anno tridiag", pg(preconditioner="tridiag"))])
+    survey12k, result12k = annotation_phase(dev, card, {**SURVEY, "n_lines": 20}, PipelineConfig(), "anno",
+                                            variants=[("anno marginals", pg(marginals=True))])
+    marginals_envelope(dev, survey12k, result12k.poses, card)
+    del survey12k, result12k
+    annotation_phase(dev, card, BA_SURVEY, ba(), "full_ba anno", profile=True,
+                     variants=[("full_ba anno marginals", ba(marginals=True)),
+                               ("full_ba anno dense_seg", ba(preconditioner="dense_seg"))])
 
     print(json.dumps({"kernels": [
         {
@@ -532,8 +706,8 @@ def main() -> int:
             "route": "cuda",
             "source": "diasss_tpu_torch/csrc/fast9.cu",
             "replaces": "diasss_tpu/features/fast_pallas.py:30",
-            "launches": fast_auto,
-            "launches_by_phase": {"auto": fast_auto, "detected": fast_detected},
+            "launches": fast_marg,
+            "launches_by_phase": {"auto": fast_auto, "auto_marginals": fast_marg, "detected": fast_detected},
             "max_abs_err": fast_err,
             "ms": fast_ms,
             "device_ms": fast_dev_ms,
@@ -548,8 +722,8 @@ def main() -> int:
             "route": "cuda",
             "source": "diasss_tpu_torch/csrc/qcorr.cu",
             "replaces": "diasss_tpu/matching/dense_pallas.py:32",
-            "launches": qcorr_auto,
-            "launches_by_phase": {"auto": qcorr_auto},
+            "launches": qcorr_marg,
+            "launches_by_phase": {"auto": qcorr_auto, "auto_marginals": qcorr_marg},
             "max_abs_err": q_err,
             "ms": q_ms,
             "device_ms": q_dev_ms,

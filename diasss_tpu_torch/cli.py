@@ -1,19 +1,22 @@
 """Command-line entry point of the port — the ``test_demo`` equivalent.
 
 Same folder flags as :mod:`diasss_tpu.cli` (the reference binary's five, plus
-``--gt``, ``--out``, ``--metrics``), run on one torch device:
+``--gt``, ``--out``, ``--metrics``, ``--mosaic``), run on one torch device:
 
     python -m diasss_tpu_torch.cli --image DIR --pose DIR --altitude DIR \\
         --groundrange DIR --annotation DIR [--detected | --auto [--drift-budget M]] \\
         [--estimator full_ba] [--device cuda] [--gt DIR] \\
-        [--out DIR --no-marginals] [--metrics FILE --no-marginals]
+        [--out DIR] [--metrics FILE] [--no-marginals] [--mosaic FILE.png]
 
 ``--auto`` runs the automatic profile (dense world-correlation matching,
 joint full BA, drift-compensated re-matching); ``--estimator full_ba`` runs
-the joint BA on annotations.  Flags of features not ported yet
-(``--online``, ``--mosaic``, ``--mesh``, non-SIFT descriptors with
-``--detected``, and the pose marginals that ``--out``/``--metrics`` turn on
-unless ``--no-marginals``) exit with an error that names their ROADMAP item.
+the joint BA on annotations.  ``--out`` or ``--metrics`` turn on the exact
+pose marginals of the estimate unless ``--no-marginals`` is given (the dump
+``est_pose_sigmas_all.txt``, the metrics keys ``pose_sigma_mean`` and
+``pose_sigma_max_xy``); ``--mosaic`` writes the mosaic rendered from the
+estimated poses.  Flags of features not ported yet (``--online``,
+``--mesh``, non-SIFT descriptors with ``--detected``) exit with an error
+that names their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -50,21 +53,18 @@ def main(argv=None) -> int:
     parser.add_argument("--min-overlap", type=float, default=None,
                         help="override the pair-gate IoU threshold (reference: 0.4)")
     parser.add_argument("--online", action="store_true", help="stream lines incrementally")
-    parser.add_argument("--mosaic", default=None, metavar="FILE.png", help="estimated-pose mosaic")
+    parser.add_argument("--mosaic", default=None, metavar="FILE.png",
+                        help="write the world mosaic rendered from the estimated poses")
     parser.add_argument("--mesh", type=int, default=None, metavar="N", help="N-device mesh")
     parser.add_argument("--no-marginals", action="store_true",
-                        help="skip per-pose marginal covariances (required with --out/--metrics "
-                             "until the pose marginals are ported, ROADMAP A9)")
+                        help="skip the exact per-pose marginal covariances that --out/--metrics turn on")
     args = parser.parse_args(argv)
 
     not_ported = [
         (args.online, "--online", "A13: online SLAM"),
-        (args.mosaic is not None, "--mosaic", "A13: extras"),
         (bool(args.mesh), "--mesh", "A14: multi-device"),
         (args.detected and not args.auto and args.descriptor != "sift", f"--descriptor {args.descriptor}",
          "A11: orb/geo_patch descriptors"),
-        ((args.out or args.metrics) and not args.no_marginals, "--out/--metrics without --no-marginals "
-         "(they report pose marginals; pass --no-marginals)", "A9: pose marginals"),
     ]
     for hit, flag, item in not_ported:
         if hit:
@@ -93,6 +93,12 @@ def main(argv=None) -> int:
         cfg = dataclasses.replace(cfg, min_overlap=args.min_overlap)
     if args.detected and not args.auto:
         cfg = detected_config(cfg, args.descriptor)
+    if (args.out or args.metrics) and not args.no_marginals:
+        # a dump or metrics file reports the estimate's pose marginals
+        if cfg.estimator == "full_ba":
+            cfg = dataclasses.replace(cfg, full_ba=dataclasses.replace(cfg.full_ba, marginals=True))
+        else:
+            cfg = dataclasses.replace(cfg, pose_graph=dataclasses.replace(cfg.pose_graph, marginals=True))
 
     t0 = time.perf_counter()
     data = load_input_data(args.image, args.pose, args.altitude, args.groundrange, args.annotation)
@@ -113,6 +119,13 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     result = run_slam(frames, cfg, gt_rows_list=gt_rows, out_dir=args.out, run_eval2=not args.no_eval2)
     print(f"SLAM solved ({time.perf_counter() - t0:.2f}s)")
+    if args.mosaic:
+        from .mosaic import build_mosaic, save_mosaic_png
+        from .pipeline import _estimated_geo
+
+        mosaic, _, _, _ = build_mosaic(frames, geo_list=_estimated_geo(frames, result.poses))
+        save_mosaic_png(args.mosaic, mosaic)
+        print(f"estimated-pose mosaic written to {args.mosaic}")
     print(f"pairs: {result.pair_ids}; loop closures accepted: {result.n_lc_accepted}")
     print("throughput:", result.summary())
     print(f"graph error: {result.solve_error0:.3e} -> {result.solve_error:.3e}")
@@ -146,6 +159,10 @@ def main(argv=None) -> int:
             "timings": result.timings,
             "counters": result.counters,
         }
+        if result.pose_sigmas is not None:
+            sig = result.pose_sigmas
+            metrics["pose_sigma_mean"] = sig[1:].mean(axis=0).tolist()
+            metrics["pose_sigma_max_xy"] = float(np.sqrt(sig[1:, 3] ** 2 + sig[1:, 4] ** 2).max())
         with open(args.metrics, "w") as f:
             json.dump(metrics, f, indent=2, default=float)
         print(f"metrics written to {args.metrics}")

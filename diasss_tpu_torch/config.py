@@ -158,10 +158,11 @@ class PoseGraphConfig:
     max_gn_iters: int = 30  # outer LM iterations of the batch solver
     cg_tol: float = 1e-6
     cg_max_iters: int = 250
-    # Linear solve per LM trial.  The port runs "direct" (the exact damped
-    # step: multi-RHS chain cyclic reduction + Woodbury over the loop-closure
-    # columns) and resolves "auto" to it on every device; the PCG family
-    # ("jacobi", "tridiag", "dense_seg", "chain") is ROADMAP A7.
+    # Linear solve per LM trial: "direct" (the exact damped step: multi-RHS
+    # chain cyclic reduction + Woodbury over the loop-closure columns) or PCG
+    # with the "jacobi", "tridiag" or "dense_seg" preconditioner; "auto" is
+    # direct under pose_graph.resolve_pg_solver_kind's guard, dense_seg above
+    # it ("chain" is on ROADMAP's not-to-port list)
     preconditioner: str = "auto"
     # damping sweep of the direct step; the port runs only (1.0,)
     lam_sweep_factors: tuple = (1.0,)
@@ -169,7 +170,7 @@ class PoseGraphConfig:
     coarse_init_stride: int = 0
     tridiag_segment: int = 256  # segment length of the segment-parallel solve
     seed: int = 0  # initial-noise PRNG seed
-    # exact per-pose marginals of the global two-stage solve (ROADMAP A9)
+    # exact per-pose marginals of the global two-stage solve
     marginals: bool = False
 
 
@@ -189,12 +190,12 @@ class FullBAConfig:
     cg_tol: float = 1e-6
     cg_max_iters: int = 250
     # Linear solve per LM trial: "direct" (multi-RHS chain cyclic reduction +
-    # Woodbury over 3 landmark-coupling columns per correspondence) is what
-    # the port runs, and "auto" resolves to it under the size guard of
-    # full_ba.resolve_ba_solver_kind; the PCG family is ROADMAP A7.
+    # Woodbury over 3 landmark-coupling columns per correspondence) or PCG
+    # ("jacobi", "tridiag", "dense_seg"); "auto" is direct under the size
+    # guard of full_ba.resolve_ba_solver_kind, dense_seg above it
     preconditioner: str = "auto"
     tridiag_segment: int = 256
-    # exact per-pose marginals at the solution (ROADMAP A9)
+    # exact per-pose marginals at the solution
     marginals: bool = False
 
 

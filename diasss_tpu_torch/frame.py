@@ -6,6 +6,7 @@ Counterpart of :mod:`diasss_tpu.frame` (device path only):
 * :func:`filtered_mask` — frame.cpp:83-124 (the box-OR dilation is a
   ``max_pool2d`` of the bright map as float)
 * geo-referencing via :func:`.geometry.sonar.geo_image`
+* :func:`normalize_columns` — the column-wise normalizer of the mosaic
 """
 
 from __future__ import annotations
@@ -45,6 +46,19 @@ def normalize_sss(raw: torch.Tensor, cfg: NormalizeConfig = NormalizeConfig()) -
     max_used = flat.mean(-1)[..., None, None] * cfg.mean_factor
     out = torch.clamp((raw - mn) / (max_used - mn) * 255.0, 0.0, 255.0)
     return torch.round(out).to(torch.uint8)
+
+
+def normalize_columns(raw: torch.Tensor) -> torch.Tensor:
+    """Column-wise mean normalization + clip [0, 3] + rescale to [0, 255],
+    rounded half-to-even to uint8: the reference's ``Util::NormalizeConvertSSS``
+    (util.cpp:339-417, rs_by_column with clip)."""
+    raw = raw.to(torch.float32)
+    col_mean = raw.sum(0, keepdim=True) * (1.0 / raw.shape[0])  # as XLA's mean: times the reciprocal
+    x = raw / torch.clamp(col_mean, min=1e-12)
+    x = torch.clamp(x, 0.0, 3.0)
+    mn, mx = x.amin(), x.amax()
+    x = (x - mn) * (255.0 / torch.clamp(mx - mn, min=1e-12))
+    return torch.round(x).to(torch.uint8)
 
 
 def _clamped_margin(ref_margin: int, dim: int) -> int:

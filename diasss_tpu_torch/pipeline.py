@@ -6,8 +6,10 @@ Counterpart of :func:`diasss_tpu.pipeline.run_slam`:
   keypoint pairs -> estimator -> evaluation + trajectory dumps,
 
 with the estimator either ``"two_stage"`` (batched loop-closure mini-solves
--> quality gate -> chain pose-graph LM, direct step) or ``"full_ba"`` (joint
-pose + landmark bundle adjustment, direct Schur/Woodbury step).  Matching is
+-> quality gate -> chain pose-graph LM) or ``"full_ba"`` (joint pose +
+landmark bundle adjustment), each with the direct step or the PCG family,
+and optionally the exact pose marginals of the solution
+(``pose_graph.marginals`` / ``full_ba.marginals``).  Matching is
 the keypoint matcher (``matcher.mode="kp"``) or the dense world-correlation
 matcher (``"dense"``).  On the detected path, ``rematch_iters > 0`` iterates
 match -> assemble -> solve: geo is recomputed from the estimated poses, the
@@ -16,9 +18,8 @@ warm-started.  The automatic profile (``config.automatic_config()``) runs
 detection, dense matching, full BA and two re-match rounds.
 
 Not ported yet, and raising with their ROADMAP item: ``mesh_devices`` (A14),
-``pose_graph.marginals`` and ``full_ba.marginals`` (A9), geo-patch
-descriptors with the keypoint matcher (A11), and surveys whose lines differ
-in bin count (A8).
+geo-patch descriptors with the keypoint matcher (A11), and surveys whose
+lines differ in bin count (A8).
 
 Stage times go to ``SlamResult.timings`` (seconds, each stage ended by a
 device synchronise) and path counters to ``SlamResult.counters``.
@@ -61,6 +62,10 @@ class SlamResult:
     timings: Dict[str, float]  # stage wall times, seconds
     counters: Dict[str, int]  # path counters (match_stacked_pairs, solver_direct_solves, ...)
     solve_capped: bool = False  # the LM hit max_gn_iters while still improving
+    # (P, 6) marginal standard deviations of the estimate (rpy then xyz
+    # tangent order; pose 0 is the gauge, zero) when the estimator's
+    # ``marginals`` is set, else None
+    pose_sigmas: Optional[np.ndarray] = None
 
     def summary(self) -> Dict[str, float]:
         total_pings = int(self.poses.t.shape[0])
@@ -83,10 +88,6 @@ def _check_supported(frames, cfg: PipelineConfig) -> None:
         raise ValueError(f"unknown estimator {cfg.estimator!r}")
     if cfg.mesh_devices:
         todo("mesh_devices (multi-device solves and matching)", "A14: multi-device")
-    if cfg.estimator == "two_stage" and cfg.pose_graph.marginals:
-        todo("pose_graph.marginals (global pose marginals)", "A9: global marginals")
-    if cfg.estimator == "full_ba" and cfg.full_ba.marginals:
-        todo("full_ba.marginals (ba_pose_marginals)", "A9: global marginals")
     if not cfg.pose_graph.use_anno and cfg.matcher.mode == "kp" and cfg.detector.descriptor == "geo_patch":
         todo("geo_patch descriptors with the keypoint matcher", "A11: geo_patch attach")
     if len({int(f.geo.shape[1]) for f in frames}) > 1:
@@ -237,7 +238,7 @@ def _solve_two_stage(frames, geo_list, kps_pairs, pair_ids, cap, cfg: PipelineCo
                      timings, counters):
     """Batched LC mini-solves -> quality gate -> global pose-graph LM."""
     from .solvers.lc import loop_closing_tfs_stacked
-    from .solvers.pose_graph import build_chain_graph, solve_pose_graph
+    from .solvers import pose_graph
 
     dev = frames[0].geo.device
     t0 = time.perf_counter()
@@ -300,16 +301,16 @@ def _solve_two_stage(frames, geo_list, kps_pairs, pair_ids, cap, cfg: PipelineCo
 
     # --- global pose-graph solve ---
     t0 = time.perf_counter()
-    graph = build_chain_graph(
+    graph = pose_graph.build_chain_graph(
         [f.dr_poses for f in frames], lc_i=lc_i, lc_j=lc_j, lc_meas=lc_meas, lc_sigmas=lc_sigmas,
         lc_valid=lc_valid, cfg=cfg.pose_graph,
         rng=rng if cfg.pose_graph.init_noise_xyz > 0 else None, device=dev,
     )
-    poses, info = solve_pose_graph(graph, cfg.pose_graph)
-    _count(counters, "solver_direct_solves", 1)
+    poses, info = pose_graph.solve_pose_graph(graph, cfg.pose_graph)
+    _count(counters, f"solver_{info.solver_kind}_solves", 1)
     _sync(dev)
     timings["pose_graph"] = timings.get("pose_graph", 0.0) + time.perf_counter() - t0
-    return poses, info, lc_results, n_acc
+    return poses, info, lc_results, n_acc, graph
 
 
 def _evaluate_pairs(frames, kps_pairs, pair_ids, poses, offsets, cfg, run_eval2):
@@ -442,7 +443,7 @@ def _solve_full_ba(frames, geo_list, kps_pairs, pair_ids, cfg: PipelineConfig, i
                    timings, counters):
     """Joint bundle adjustment, warm-started from the previous solve on
     re-match rounds."""
-    from .solvers.full_ba import build_ba_problem, solve_full_ba
+    from .solvers import full_ba
 
     t0 = time.perf_counter()
     ba_cfg = cfg.full_ba
@@ -454,18 +455,43 @@ def _solve_full_ba(frames, geo_list, kps_pairs, pair_ids, cfg: PipelineConfig, i
         ba_cfg = dataclasses.replace(ba_cfg, max_geo_discrepancy=cfg.rematch_geo_discrepancy)
     noise = rng if cfg.pose_graph.init_noise_xyz > 0 and init_poses is None else None
     frames_geo = [f._replace(geo=g) for f, g in zip(frames, geo_list)]
-    prob = build_ba_problem(frames_geo, kps_pairs, pair_ids, ba_cfg, cfg.pose_graph, rng=noise)
+    prob = full_ba.build_ba_problem(frames_geo, kps_pairs, pair_ids, ba_cfg, cfg.pose_graph, rng=noise)
     if init_poses is not None:
         prob = prob._replace(poses0=init_poses)
     n_valid = int(prob.kp_valid.sum())
-    # the Woodbury columns stop at the 128-bucketed valid count (the padding
-    # tail is invalid)
-    k_cols = min(int(prob.kp_i.shape[0]), max(128, -(-n_valid // 128) * 128))
-    poses, lms, info = solve_full_ba(prob, ba_cfg, cfg.kp_noise, k_direct_cols=k_cols)
+    poses, lms, info = full_ba.solve_full_ba(prob, ba_cfg, cfg.kp_noise,
+                                             k_direct_cols=_woodbury_width(prob, n_valid))
     _count(counters, f"solver_{info.solver_kind}_solves", 1)
     _sync(poses.t.device)
     timings["full_ba"] = timings.get("full_ba", 0.0) + time.perf_counter() - t0
-    return poses, info, n_valid
+    return poses, info, n_valid, prob, lms
+
+
+def _woodbury_width(prob, n_valid: int) -> int:
+    """Leading factor slots that carry Woodbury columns: the valid count
+    rounded up to 128 (the padding tail is invalid)."""
+    return min(int(prob.kp_i.shape[0]), max(128, -(-n_valid // 128) * 128))
+
+
+def _pose_sigmas(cfg: PipelineConfig, solved, poses, timings) -> Optional[np.ndarray]:
+    """(P, 6) marginal standard deviations at the solution when the
+    estimator's ``marginals`` is set: ``sqrt`` of the diagonals of the exact
+    marginal covariance blocks, one host copy.  ``solved`` is the solved
+    pose graph, or (BAProblem, landmarks, valid count)."""
+    from .solvers import full_ba, pose_graph
+
+    if not (cfg.full_ba.marginals if cfg.estimator == "full_ba" else cfg.pose_graph.marginals):
+        return None
+    t0 = time.perf_counter()
+    if cfg.estimator == "full_ba":
+        prob, lms, n_valid = solved
+        cov = full_ba.ba_pose_marginals(prob, poses, lms, cfg.full_ba, cfg.kp_noise,
+                                        k_cols=_woodbury_width(prob, n_valid))
+    else:
+        cov = pose_graph.pg_pose_marginals(solved, poses)
+    sigmas = torch.sqrt(torch.clamp(torch.diagonal(cov, dim1=1, dim2=2), min=0.0)).to(torch.float32).cpu().numpy()
+    timings["pose_marginals"] = time.perf_counter() - t0
+    return sigmas
 
 
 def run_slam(
@@ -504,7 +530,7 @@ def run_slam(
     # iterated match -> assemble -> solve (re-matching only when detected)
     geo_list = [f.geo for f in frames]
     n_iters = 1 + (cfg.rematch_iters if not use_anno else 0)
-    init_poses = poses = info = prev_t = None
+    init_poses = poses = info = prev_t = solved = None
     lc_results: Dict[Tuple[int, int], LCResult] = {}
     n_acc = 0
     kps_pairs: Dict[Tuple[int, int], KpsPairs] = {}
@@ -537,12 +563,15 @@ def run_slam(
         timings["kps_assembly"] = timings.get("kps_assembly", 0.0) + time.perf_counter() - t0
 
         if cfg.estimator == "full_ba":
-            poses, info, n_acc = _solve_full_ba(frames, geo_list, kps_pairs, pair_ids, cfg, init_poses, it,
-                                                rng, timings, counters)
+            poses, info, n_acc, prob, lms = _solve_full_ba(frames, geo_list, kps_pairs, pair_ids, cfg, init_poses,
+                                                           it, rng, timings, counters)
             init_poses = poses
+            solved = (prob, lms, n_acc)
         else:
-            poses, info, lc_results, n_acc = _solve_two_stage(frames, geo_list, kps_pairs, pair_ids, cap, cfg,
-                                                              rng, timings, counters)
+            poses, info, lc_results, n_acc, solved = _solve_two_stage(frames, geo_list, kps_pairs, pair_ids, cap,
+                                                                      cfg, rng, timings, counters)
+
+    pose_sigmas = _pose_sigmas(cfg, solved, poses, timings)
 
     t0 = time.perf_counter()
     offsets = np.cumsum([0] + [int(f.dr_poses.shape[0]) for f in frames])
@@ -585,6 +614,7 @@ def run_slam(
         timings=timings,
         counters=counters,
         solve_capped=info.iterations >= max_it and info.stall == 0,
+        pose_sigmas=pose_sigmas,
     )
     if out_dir is not None:
         from .dumps import write_reference_dumps

@@ -1,20 +1,21 @@
 """Full bundle adjustment: joint poses + landmarks with Schur elimination.
 
-Counterpart of the direct path of :mod:`diasss_tpu.solvers.full_ba`: one
-nonlinear least-squares problem over all ping poses and all correspondence
-landmarks,
+Counterpart of :mod:`diasss_tpu.solvers.full_ba`: one nonlinear
+least-squares problem over all ping poses and all correspondence landmarks,
 
     min  sum ||odo residuals||^2 + sum_k ( rho(||sss(L_k, X_{s_k})||^2) +
          rho(||sss(L_k, X_{t_k})||^2) + ||L_k prior||^2 ),
 
-solved by Levenberg-Marquardt (Huber ``rho`` by IRLS).  Each trial eliminates
-the landmarks (3x3 blocks) and solves the Schur-reduced pose system exactly:
-the odometry chain by multi-RHS cyclic reduction, the landmark couplings (3
-columns per correspondence) by Woodbury with one dense Cholesky.
-
-``"auto"`` resolves to that direct step on every device, under the JAX
-package's size guard; above it, and for the PCG family, the port raises
-(ROADMAP A7).  ``ba_pose_marginals`` is not ported (ROADMAP A9).
+solved by Levenberg-Marquardt (Huber ``rho`` by IRLS).  Each trial
+eliminates the landmarks (3x3 blocks) and solves the Schur-reduced pose
+system: exactly (``"direct"``: the odometry chain by multi-RHS cyclic
+reduction, the landmark couplings, 3 columns per correspondence, by
+Woodbury with one dense Cholesky) or by preconditioned conjugate gradients
+with the Schur-reduced product (``"jacobi"``, ``"tridiag"``,
+``"dense_seg"``).  ``"auto"`` is the direct step under the JAX package's
+size guard and ``"dense_seg"`` above it; ``"chain"`` is on ROADMAP's
+not-to-port list.  :func:`ba_pose_marginals` gives the exact per-pose
+marginal covariances at the solution.
 """
 
 from __future__ import annotations
@@ -59,27 +60,28 @@ class BAInfo(NamedTuple):
     error: torch.Tensor
     iterations: int  # LM trials run
     stall: int  # consecutive no-improvement trials at exit
+    cg_iters_total: int  # CG iterations over all trials (0 for the direct step)
     solver_kind: str
 
 
 def resolve_ba_solver_kind(preconditioner: str, P: int, K_pad: int) -> str:
-    """The linear solve a full-BA run takes: ``"auto"`` and ``"direct"`` are
-    the direct Woodbury chain step on every device while ``K_pad <= 2048``
-    and its ``(P, 6, 3K+1)`` multi-RHS buffers stay under 4 GB (the JAX
-    package's guard).  Above the guard, or for any PCG kind, not ported."""
-    if preconditioner not in ("auto", "direct"):
+    """The linear solve a full-BA run takes: ``"auto"`` is the direct
+    Woodbury chain step while ``K_pad <= 2048`` and its ``(P, 6, 3K+1)``
+    multi-RHS buffers (three of them) stay under 4 GB (the JAX package's
+    guard), else ``"dense_seg"`` PCG; ``"direct"``, ``"jacobi"``,
+    ``"tridiag"`` and ``"dense_seg"`` are taken as given."""
+    kind = preconditioner
+    if kind == "chain":
         raise NotImplementedError(
-            f"full-BA preconditioner {preconditioner!r} is not ported; only the direct step is "
-            "(ROADMAP A7: dense_seg and the PCG family)"
+            "the 'chain' preconditioner (tridiag.ChainFactor) is an opt-in negative result on ROADMAP's "
+            "not-to-port list; dense_seg is the PCG fallback"
         )
-    mem_ok = P * 6 * (3 * K_pad + 1) * 4 * 3 < 4e9
-    if not (K_pad <= MAX_DIRECT_KPAD and mem_ok):
-        raise NotImplementedError(
-            f"{K_pad} padded correspondences over {P} poses exceed the direct step's guard "
-            f"(K_pad <= {MAX_DIRECT_KPAD}, (P, 6, 3K+1) buffers < 4 GB); the dense_seg fallback is "
-            "not ported (ROADMAP A7)"
-        )
-    return "direct"
+    if kind == "auto":
+        mem_ok = P * 6 * (3 * K_pad + 1) * 4 * 3 < 4e9
+        kind = "direct" if (K_pad <= MAX_DIRECT_KPAD and mem_ok) else "dense_seg"
+    if kind not in ("direct", "jacobi", "tridiag", "dense_seg"):
+        raise ValueError(f"unknown full-BA preconditioner {preconditioner!r}")
+    return kind
 
 
 def _sss_factor_terms(pose: se3.Pose3, lm: torch.Tensor, sr: torch.Tensor, sigmas: torch.Tensor):
@@ -156,6 +158,24 @@ def _segment_sum(x: torch.Tensor, idx: torch.Tensor, P: int) -> torch.Tensor:
     return torch.zeros((P,) + x.shape[1:], dtype=x.dtype, device=x.device).index_add_(0, idx, x)
 
 
+def _schur_columns(prob, L_ll, Hpl_s, Hpl_t, P: int, K: int, k_cols):
+    """The Schur coupling columns of the leading ``k_cols`` factor slots:
+    ``Vhat = Hpl L_ll^-T`` (k, 6, 3) at each endpoint, pose-0 couplings
+    zeroed (the gauge), their endpoint indices and the scattered ``V`` (P, 6,
+    3k).  Slots past ``k_cols`` must be invalid padding."""
+    from .pose_graph import woodbury_columns
+
+    if k_cols is None or k_cols > K:
+        k_cols = K
+    Hpl_s, Hpl_t, L_ll = Hpl_s[:k_cols], Hpl_t[:k_cols], L_ll[:k_cols]
+    kp_i, kp_j = prob.kp_i[:k_cols], prob.kp_j[:k_cols]
+    Hpl_s0 = torch.where((kp_i == 0)[:, None, None], 0.0, Hpl_s)
+    Hpl_t0 = torch.where((kp_j == 0)[:, None, None], 0.0, Hpl_t)
+    Vhat_s = torch.linalg.solve_triangular(L_ll, Hpl_s0.transpose(-1, -2), upper=False).transpose(-1, -2)
+    Vhat_t = torch.linalg.solve_triangular(L_ll, Hpl_t0.transpose(-1, -2), upper=False).transpose(-1, -2)
+    return Vhat_s, Vhat_t, kp_i, kp_j, woodbury_columns(Vhat_s, Vhat_t, kp_i, kp_j, P)
+
+
 def _direct_ba_step(prob, g_red, U_chain, D_p, L_ll, Hpl_s, Hpl_t, lam, P: int, K: int, k_cols=None):
     """Exact damped step of the Schur-reduced pose system, ``S = T' - V V^T``:
 
@@ -163,36 +183,19 @@ def _direct_ba_step(prob, g_red, U_chain, D_p, L_ll, Hpl_s, Hpl_t, lam, P: int, 
       tridiag(diag = (1+lam) D_p, offdiag = U_chain), solved by multi-RHS
       cyclic reduction;
     * ``V`` = the Schur coupling columns ``Hpl L_ll^-T`` (3 per
-      correspondence, two nonzero 6-row blocks each at ``kp_i``/``kp_j``),
-      built by a scatter into zeros (``index_put_`` with accumulation; the
-      JAX package's one-hot product gives the same values).
+      correspondence, two nonzero 6-row blocks each at ``kp_i``/``kp_j``,
+      :func:`_schur_columns`).
 
     Woodbury with the subtracted sign: ``S^-1 b = w0 + Wv (I - V^T T'^-1
     V)^-1 V^T w0`` with ``[w0 | Wv] = T'^-1 [b | V]``.  A failed capacitance
     Cholesky gives NaN, so LM rejects the step.  ``k_cols``: leading factor
     slots that carry columns (slots past it must be invalid padding)."""
+    from .pose_graph import columns_t
     from .tridiag import solve_block_tridiag_multi
 
     dtype, dev = D_p.dtype, D_p.device
     eye6 = torch.eye(6, dtype=dtype, device=dev)
-    if k_cols is None or k_cols > K:
-        k_cols = K
-    K = k_cols
-    Hpl_s, Hpl_t, L_ll = Hpl_s[:K], Hpl_t[:K], L_ll[:K]
-    kp_i, kp_j = prob.kp_i[:K], prob.kp_j[:K]
-
-    # gauge: pose-0-touching Schur couplings vanish
-    Hpl_s0 = torch.where((kp_i == 0)[:, None, None], 0.0, Hpl_s)
-    Hpl_t0 = torch.where((kp_j == 0)[:, None, None], 0.0, Hpl_t)
-    Vhat_s = torch.linalg.solve_triangular(L_ll, Hpl_s0.transpose(-1, -2), upper=False).transpose(-1, -2)
-    Vhat_t = torch.linalg.solve_triangular(L_ll, Hpl_t0.transpose(-1, -2), upper=False).transpose(-1, -2)
-
-    ar = torch.arange(K, device=dev)
-    V = torch.zeros((P, K, 6, 3), dtype=dtype, device=dev)
-    V.index_put_((kp_i, ar), Vhat_s, accumulate=True)
-    V.index_put_((kp_j, ar), Vhat_t, accumulate=True)
-    V = V.permute(0, 2, 1, 3).reshape(P, 6, 3 * K)
-
+    Vhat_s, Vhat_t, kp_i, kp_j, V = _schur_columns(prob, L_ll, Hpl_s, Hpl_t, P, K, k_cols)
     T_diag = (1.0 + lam) * D_p + 1e-6 * eye6
     T_diag[0] = eye6
     U = U_chain.clone()
@@ -201,10 +204,8 @@ def _direct_ba_step(prob, g_red, U_chain, D_p, L_ll, Hpl_s, Hpl_t, lam, P: int, 
     W = solve_block_tridiag_multi(T_diag, U, torch.cat([(-g_red)[:, :, None], V], dim=2))
     del V
     w0, Wv = W[:, :, 0], W[:, :, 1:]
-    AW = Vhat_s.transpose(-1, -2) @ Wv[kp_i] + Vhat_t.transpose(-1, -2) @ Wv[kp_j]  # (K, 3, 3K)
-    C = torch.eye(3 * K, dtype=dtype, device=dev) - AW.reshape(3 * K, 3 * K)
-    del AW
-    c0 = (Vhat_s.transpose(-1, -2) @ w0[kp_i][..., None] + Vhat_t.transpose(-1, -2) @ w0[kp_j][..., None]).reshape(-1)
+    C = torch.eye(Wv.shape[2], dtype=dtype, device=dev) - columns_t(Vhat_s, Vhat_t, kp_i, kp_j, Wv)
+    c0 = columns_t(Vhat_s, Vhat_t, kp_i, kp_j, w0[..., None])[:, 0]
     y = cholesky_solve_or_nan(0.5 * (C + C.T), c0)
     delta = w0 + Wv @ y
     delta[0] = 0.0
@@ -232,7 +233,26 @@ def _finish_trial(poses, lms, err, lam, delta_p, Jp_s, Jp_t, Jl_s, Jl_t, g_l, ll
     return poses, lms, err, lam
 
 
-def _trial(poses, lms, err, lam, prob: BAProblem, sig_s, sig_t, cfg: FullBAConfig, kp_cfg, k_cols):
+class _Normal(NamedTuple):
+    """The Gauss-Newton blocks of one linearization (Huber IRLS weights
+    applied, invalid slots zeroed; no damping, no gauge)."""
+
+    Ja: torch.Tensor  # (P-1, 6, 6) odometry Jacobians, pose i and i+1
+    Jb: torch.Tensor
+    Jp_s: torch.Tensor  # (K, 2, 6) sonar factor pose Jacobians
+    Jp_t: torch.Tensor
+    Jl_s: torch.Tensor  # (K, 2, 3) landmark Jacobians
+    Jl_t: torch.Tensor
+    g_p: torch.Tensor  # (P, 6) pose gradient
+    g_l: torch.Tensor  # (K, 3) landmark gradient
+    D_p: torch.Tensor  # (P, 6, 6) pose diagonal blocks
+    H_ll: torch.Tensor  # (K, 3, 3) landmark blocks
+    Hpl_s: torch.Tensor  # (K, 6, 3) pose-landmark blocks
+    Hpl_t: torch.Tensor
+    U_chain: torch.Tensor  # (P-1, 6, 6) odometry couplings (i, i+1)
+
+
+def _normal_blocks(poses, lms, prob: BAProblem, sig_s, sig_t, huber_delta: float) -> _Normal:
     from .pose_graph import _linearize_between
 
     P = poses.t.shape[0]
@@ -253,8 +273,8 @@ def _trial(poses, lms, err, lam, prob: BAProblem, sig_s, sig_t, cfg: FullBAConfi
     r_s = torch.where(v1, r_s, 0.0)
     r_t = torch.where(v1, r_t, 0.0)
     # IRLS robustification: downweight gross sonar residuals (Huber)
-    w_s = _huber_weight(torch.sum(r_s ** 2, -1), cfg.huber_delta)
-    w_t = _huber_weight(torch.sum(r_t ** 2, -1), cfg.huber_delta)
+    w_s = _huber_weight(torch.sum(r_s ** 2, -1), huber_delta)
+    w_t = _huber_weight(torch.sum(r_t ** 2, -1), huber_delta)
     r_s, r_t = r_s * w_s[:, None], r_t * w_t[:, None]
     Jp_s = torch.where(v2, Jp_s * w_s[:, None, None], 0.0)
     Jp_t = torch.where(v2, Jp_t * w_t[:, None, None], 0.0)
@@ -274,35 +294,116 @@ def _trial(poses, lms, err, lam, prob: BAProblem, sig_s, sig_t, cfg: FullBAConfi
     g_l = tmv(Jl_s, r_s) + tmv(Jl_t, r_t) + tmv(Jl_pr, r_pr)
     D_p = (_segment_sum(tmm(Ja, Ja), idx_a, P) + _segment_sum(tmm(Jb, Jb), idx_b, P)
            + _segment_sum(tmm(Jp_s, Jp_s), prob.kp_i, P) + _segment_sum(tmm(Jp_t, Jp_t), prob.kp_j, P))
-    H_ll = (tmm(Jl_s, Jl_s) + tmm(Jl_t, Jl_t) + tmm(Jl_pr, Jl_pr)) * (1.0 + lam) + 1e-6 * eye3
-    L_ll, info = torch.linalg.cholesky_ex(H_ll)
-    L_ll = torch.where((info != 0)[:, None, None], float("nan"), L_ll)  # as jnp.linalg.cholesky
+    H_ll = tmm(Jl_s, Jl_s) + tmm(Jl_t, Jl_t) + tmm(Jl_pr, Jl_pr)
+    return _Normal(Ja, Jb, Jp_s, Jp_t, Jl_s, Jl_t, g_p, g_l, D_p, H_ll, tmm(Jp_s, Jl_s), tmm(Jp_t, Jl_t),
+                   tmm(Ja, Jb))
+
+
+def _pcg_ba_step(kind: str, prob, nb: _Normal, g_red, D_p, ll_solve, L_ll, lam, P: int, cfg: FullBAConfig):
+    """Damped step of the Schur-reduced pose system by PCG; returns (delta,
+    CG iterations).  The product is applied factor-wise (odometry chain,
+    sonar pose diagonal, damping, minus ``Hpl H_ll^-1 H_lp``).  The
+    preconditioner works on the reduced system's block diagonal (damped
+    ``D_p`` minus each factor's ``Hpl H_ll^-1 Hpl^T``, plus 1e-5 I), or on
+    the block where its Cholesky fails, the damped ``D_p`` plus 1e-5 I
+    instead: its blocks (``"jacobi"``; there one failed block switches them
+    all), or the chain on it cut into segments, by cyclic reduction per
+    application (``"tridiag"``) or inverted densely per trial
+    (``"dense_seg"``)."""
+    from .pose_graph import _cholesky_or_nan, _pcg
+    from .tridiag import (apply_dense_segment_inverses, auto_dense_segment, dense_segment_inverses,
+                          solve_block_tridiag_segmented)
+
+    dev = D_p.device
+    eye6 = torch.eye(6, dtype=D_p.dtype, device=dev)
+    idx_a = torch.arange(P - 1, device=dev)
+    idx_b = idx_a + 1
+    kp_i, kp_j = prob.kp_i, prob.kp_j
+    Ja_t, Jb_t = nb.Ja.transpose(-1, -2), nb.Jb.transpose(-1, -2)
+    Jps_t, Jpt_t = nb.Jp_s.transpose(-1, -2), nb.Jp_t.transpose(-1, -2)
+    Jls_t, Jlt_t = nb.Jl_s.transpose(-1, -2), nb.Jl_t.transpose(-1, -2)
+
+    def mv(J, v):
+        return (J @ v[..., None])[..., 0]
+
+    def matvec(v):
+        v = torch.cat([torch.zeros_like(v[:1]), v[1:]])
+        a = mv(nb.Ja, v[idx_a]) + mv(nb.Jb, v[idx_b])
+        out = _segment_sum(mv(Ja_t, a), idx_a, P) + _segment_sum(mv(Jb_t, a), idx_b, P)
+        b_s, b_t = mv(nb.Jp_s, v[kp_i]), mv(nb.Jp_t, v[kp_j])
+        out = out + _segment_sum(mv(Jps_t, b_s), kp_i, P) + _segment_sum(mv(Jpt_t, b_t), kp_j, P)
+        out = out + lam * mv(D_p, v)
+        yv = ll_solve(mv(Jls_t, b_s) + mv(Jlt_t, b_t))  # H_ll^-1 H_lp v
+        out = out - (_segment_sum(mv(nb.Hpl_s, yv), kp_i, P) + _segment_sum(mv(nb.Hpl_t, yv), kp_j, P))
+        out[0] = 0.0
+        return out
+
+    corr = (_segment_sum(nb.Hpl_s @ torch.cholesky_solve(nb.Hpl_s.transpose(-1, -2), L_ll), kp_i, P)
+            + _segment_sum(nb.Hpl_t @ torch.cholesky_solve(nb.Hpl_t.transpose(-1, -2), L_ll), kp_j, P))
+    Dp_damped = D_p * (1.0 + lam) - corr
+    Dp_damped[0] = eye6
+    Dp_damped = Dp_damped + 1e-5 * eye6
+    fallback = D_p * (1.0 + lam) + 1e-5 * eye6
+    L_d = _cholesky_or_nan(Dp_damped)
+    if kind == "jacobi":
+        Lp = torch.where(torch.isfinite(L_d).all(), L_d, _cholesky_or_nan(fallback))
+
+        def precond(v):
+            return torch.cholesky_solve(v[..., None], Lp)[..., 0]
+    else:
+        D_pc = torch.where(torch.isfinite(L_d).all(-1, keepdim=True).all(-2, keepdim=True), Dp_damped, fallback)
+        U = nb.U_chain.clone()
+        U[0] = 0.0
+        if kind == "dense_seg":
+            Minv = dense_segment_inverses(D_pc, U, auto_dense_segment(P, cfg.tridiag_segment))
+
+            def precond(v):
+                return apply_dense_segment_inverses(Minv, v)
+        else:
+            def precond(v):
+                return solve_block_tridiag_segmented(D_pc, U, v, cfg.tridiag_segment)
+
+    return _pcg(matvec, -g_red, precond, cfg.cg_tol, cfg.cg_max_iters)
+
+
+def _trial(poses, lms, err, lam, prob: BAProblem, sig_s, sig_t, cfg: FullBAConfig, kp_cfg, kind: str, k_cols):
+    """One LM trial; returns (poses, lms, err, lam, CG iterations)."""
+    from .pose_graph import _cholesky_or_nan
+
+    P = poses.t.shape[0]
+    dtype, dev = lms.dtype, lms.device
+    nb = _normal_blocks(poses, lms, prob, sig_s, sig_t, cfg.huber_delta)
+    L_ll = _cholesky_or_nan(nb.H_ll * (1.0 + lam) + 1e-6 * torch.eye(3, dtype=dtype, device=dev))
 
     def ll_solve(x):  # (K, 3)
         return torch.cholesky_solve(x[..., None], L_ll)[..., 0]
 
-    Hpl_s = tmm(Jp_s, Jl_s)  # (K, 6, 3)
-    Hpl_t = tmm(Jp_t, Jl_t)
+    g_p = nb.g_p.clone()
     g_p[0] = 0.0
+    D_p = nb.D_p.clone()
     D_p[0] = torch.eye(6, dtype=dtype, device=dev)
-    y = ll_solve(g_l)
-    g_red = g_p - (_segment_sum((Hpl_s @ y[..., None])[..., 0], prob.kp_i, P)
-                   + _segment_sum((Hpl_t @ y[..., None])[..., 0], prob.kp_j, P))
+    y = ll_solve(nb.g_l)
+    g_red = g_p - (_segment_sum((nb.Hpl_s @ y[..., None])[..., 0], prob.kp_i, P)
+                   + _segment_sum((nb.Hpl_t @ y[..., None])[..., 0], prob.kp_j, P))
     g_red[0] = 0.0
-    U_chain = tmm(Ja, Jb)  # (P-1, 6, 6)
-    delta_p = _direct_ba_step(prob, g_red, U_chain, D_p, L_ll, Hpl_s, Hpl_t, lam, P, int(prob.kp_i.shape[0]),
-                              k_cols=k_cols)
-    return _finish_trial(poses, lms, err, lam, delta_p, Jp_s, Jp_t, Jl_s, Jl_t, g_l, ll_solve, prob, kp_cfg,
-                         cfg, P)
+    if kind == "direct":
+        delta_p = _direct_ba_step(prob, g_red, nb.U_chain, D_p, L_ll, nb.Hpl_s, nb.Hpl_t, lam, P,
+                                  int(prob.kp_i.shape[0]), k_cols=k_cols)
+        cg_k = 0
+    else:
+        delta_p, cg_k = _pcg_ba_step(kind, prob, nb, g_red, D_p, ll_solve, L_ll, lam, P, cfg)
+    return _finish_trial(poses, lms, err, lam, delta_p, nb.Jp_s, nb.Jp_t, nb.Jl_s, nb.Jl_t, nb.g_l, ll_solve,
+                         prob, kp_cfg, cfg, P) + (cg_k,)
 
 
 def solve_full_ba(prob: BAProblem, cfg: FullBAConfig, kp_cfg, k_direct_cols: int | None = None):
-    """LM with per-trial Schur-eliminated direct solves; returns (poses,
-    landmarks, BAInfo).  A Python loop of trials: the accept/reject and
-    damping update stay on the device; the stall flag (two consecutive
-    trials improving the error by < 1e-6 relative end the solve) costs one
-    host read per trial.  ``k_direct_cols``: leading factor slots that carry
-    Woodbury columns (the padding tail is invalid); None = all K slots."""
+    """LM with per-trial Schur-eliminated solves; returns (poses, landmarks,
+    BAInfo).  A Python loop of trials: the accept/reject and damping update
+    stay on the device; the stall flag (two consecutive trials improving the
+    error by < 1e-6 relative end the solve) costs one host read per trial,
+    and a PCG step one per ``pose_graph.CG_CHUNK`` CG iterations.
+    ``k_direct_cols``: leading factor slots that carry Woodbury columns in
+    the direct step (the padding tail is invalid); None = all K slots."""
     P = prob.poses0.t.shape[0]
     dtype, dev = prob.poses0.t.dtype, prob.poses0.t.device
     kind = resolve_ba_solver_kind(cfg.preconditioner, P, int(prob.kp_i.shape[0]))
@@ -311,14 +412,57 @@ def solve_full_ba(prob: BAProblem, cfg: FullBAConfig, kp_cfg, k_direct_cols: int
     err0 = _ba_error(prob.poses0, prob.lm0, prob, kp_cfg, cfg.huber_delta)
     poses, lms, err = prob.poses0, prob.lm0, err0
     lam = torch.tensor(1e-4, dtype=dtype, device=dev)
-    k = stall = 0
+    k = stall = cg_total = 0
     while k < cfg.max_iters and stall < 2:
-        poses, lms, err2, lam = _trial(poses, lms, err, lam, prob, sig_s, sig_t, cfg, kp_cfg, k_direct_cols)
+        poses, lms, err2, lam, cg_k = _trial(poses, lms, err, lam, prob, sig_s, sig_t, cfg, kp_cfg, kind,
+                                             k_direct_cols)
         improved = bool((err - err2) > 1e-6 * torch.clamp(err, min=1e-30))
         err = err2
         k += 1
+        cg_total += cg_k
         stall = 0 if improved else stall + 1
-    return poses, lms, BAInfo(error0=err0, error=err, iterations=k, stall=stall, solver_kind=kind)
+    return poses, lms, BAInfo(error0=err0, error=err, iterations=k, stall=stall, cg_iters_total=cg_total,
+                              solver_kind=kind)
+
+
+def ba_pose_marginals(prob: BAProblem, poses: se3.Pose3, lms: torch.Tensor, cfg: FullBAConfig, kp_cfg,
+                      k_cols: int | None = None) -> torch.Tensor:
+    """(P, 6, 6) exact marginal covariance blocks of the BA pose estimate:
+    the block diagonal of the inverse Schur complement ``S^-1 = (T - V
+    V^T)^-1`` at the solution,
+
+        diag(S^-1)_p = diag(T^-1)_p + Wv_p (I - V^T T^-1 V)^-1 Wv_p^T,
+
+    ``T`` the gauge-fixed chain (selected inversion along the
+    cyclic-reduction levels), ``V`` the Schur coupling columns of the direct
+    step trimmed to ``k_cols`` (slots past it must be invalid), ``Wv = T^-1
+    V`` from one multi-RHS cyclic reduction.  The linearization is the
+    solver's at the solution (Huber IRLS weights, constant-pose endpoints),
+    undamped, in float32; the rest runs in float64, as
+    :func:`.pose_graph.pg_pose_marginals` explains, and the result is
+    float64.  Pose 0 is the gauge (zero covariance)."""
+    from .pose_graph import _cholesky_or_nan, columns_t, lowrank_diag_blocks
+    from .tridiag import block_tridiag_selected_inverse, solve_block_tridiag_multi
+
+    P = prob.poses0.t.shape[0]
+    dtype, dev = torch.float64, prob.poses0.t.device
+    eye6 = torch.eye(6, dtype=dtype, device=dev)
+    sig_s = kp_noise_sigmas(prob.kp_sr_s, kp_cfg.sigma_r, kp_cfg.alpha_bw_deg)
+    sig_t = kp_noise_sigmas(prob.kp_sr_t, kp_cfg.sigma_r, kp_cfg.alpha_bw_deg)
+    nb = _Normal(*[x.to(dtype) for x in _normal_blocks(poses, lms, prob, sig_s, sig_t, cfg.huber_delta)])
+    L_ll = _cholesky_or_nan(nb.H_ll + 1e-6 * torch.eye(3, dtype=dtype, device=dev))
+    T_diag = nb.D_p + 1e-6 * eye6
+    T_diag[0] = eye6
+    U = nb.U_chain.clone()
+    U[0] = 0.0
+    Vhat_s, Vhat_t, kp_i, kp_j, V = _schur_columns(prob, L_ll, nb.Hpl_s, nb.Hpl_t, P, int(prob.kp_i.shape[0]),
+                                                   k_cols)
+    Wv = solve_block_tridiag_multi(T_diag, U, V)
+    del V
+    C = torch.eye(Wv.shape[2], dtype=dtype, device=dev) - columns_t(Vhat_s, Vhat_t, kp_i, kp_j, Wv)
+    cov = block_tridiag_selected_inverse(T_diag, U) + lowrank_diag_blocks(Wv, _cholesky_or_nan(0.5 * (C + C.T)))
+    cov[0] = 0.0
+    return cov
 
 
 def _gather_geo_endpoints(frames, fs, ping_s, bin_s, ft, ping_t, bin_t):

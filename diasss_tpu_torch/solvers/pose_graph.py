@@ -1,17 +1,20 @@
-"""Global pose-graph optimization — batched LM with the exact direct step.
+"""Global pose-graph optimization — batched LM on the chain pose graph.
 
-Counterpart of the direct path of :mod:`diasss_tpu.solvers.pose_graph`.  All
-poses of all frames form one chain (odometry factors ``(i, i+1)``); loop
-closures are sparse extra between factors with per-factor diagonal sigmas;
-pose 0 is held fixed (the gauge).  Each LM trial solves the damped normal
-equations exactly: the odometry chain (block-tridiagonal, plus the damping)
-by multi-RHS cyclic reduction, the loop-closure columns by the Woodbury
-identity with one dense Cholesky.
+Counterpart of :mod:`diasss_tpu.solvers.pose_graph`.  All poses of all
+frames form one chain (odometry factors ``(i, i+1)``); loop closures are
+sparse extra between factors with per-factor diagonal sigmas; pose 0 is
+held fixed (the gauge).  Each LM trial solves the damped normal equations
+either exactly (``"direct"``: the odometry chain by multi-RHS cyclic
+reduction, the loop-closure columns by the Woodbury identity with one dense
+Cholesky) or by preconditioned conjugate gradients with the factor-wise
+Hessian product (``"jacobi"``, ``"tridiag"``, ``"dense_seg"``).
+:func:`pg_pose_marginals` gives the exact per-pose marginal covariances at
+the solution.
 
-The JAX package's ``"auto"`` picks a solver by backend; here ``"auto"``
-resolves to ``"direct"`` on every device, and the PCG family (``jacobi``,
-``tridiag``, ``dense_seg``, ``chain``) and more than 1024 loop-closure
-factors raise.
+``"auto"`` is ``"direct"`` while the Woodbury width and its buffers stay
+within the JAX package's guard and ``"dense_seg"`` above it — the JAX
+package's TPU rule, keyed here on no device.  ``"chain"`` is on ROADMAP's
+not-to-port list and raises.
 """
 
 from __future__ import annotations
@@ -29,6 +32,10 @@ from ..factors.between import between_residual
 from ..geometry import se3
 
 MAX_DIRECT_LC = 1024
+# CG iterations between two host reads of the convergence flag; past
+# convergence the iterate is frozen by a mask, so the result does not
+# depend on it
+CG_CHUNK = 16
 
 
 class PoseGraph(NamedTuple):
@@ -49,22 +56,27 @@ class SolveInfo(NamedTuple):
     error: torch.Tensor  # () graph error at the solution
     iterations: int  # LM trials run
     stall: int  # consecutive trials without relative improvement at exit
+    cg_iters_total: int = 0  # CG iterations over all trials (0 for the direct step)
+    solver_kind: str = "direct"  # the resolved linear solve
 
 
 def resolve_pg_solver_kind(preconditioner: str, P: int, L_lc: int) -> str:
-    """``"auto"`` and ``"direct"`` resolve to ``"direct"``; anything else, or
-    more than :data:`MAX_DIRECT_LC` loop-closure factors, is not ported."""
-    if preconditioner not in ("auto", "direct"):
+    """The linear solve of a pose-graph run.  ``"auto"`` is ``"direct"``
+    while ``L_lc <= 1024`` and its ``(P, 6, 6L+1)`` multi-RHS buffers (three
+    of them) stay under 4 GB, else ``"dense_seg"``; ``"direct"``,
+    ``"jacobi"``, ``"tridiag"`` and ``"dense_seg"`` are taken as given."""
+    kind = preconditioner
+    if kind == "chain":
         raise NotImplementedError(
-            f"pose-graph preconditioner {preconditioner!r} is not ported; only the direct "
-            "step is (ROADMAP A7: the dense_seg/tridiag PCG family)"
+            "the 'chain' preconditioner (tridiag.ChainFactor) is an opt-in negative result on ROADMAP's "
+            "not-to-port list; dense_seg is the PCG fallback"
         )
-    if L_lc > MAX_DIRECT_LC:
-        raise NotImplementedError(
-            f"{L_lc} loop-closure factors exceed the direct step's {MAX_DIRECT_LC}; the "
-            "PCG fallback is not ported (ROADMAP A7)"
-        )
-    return "direct"
+    if kind == "auto":
+        mem_ok = P * 6 * (6 * L_lc + 1) * 4 * 3 < 4e9
+        kind = "direct" if (L_lc <= MAX_DIRECT_LC and mem_ok) else "dense_seg"
+    if kind not in ("direct", "jacobi", "tridiag", "dense_seg"):
+        raise ValueError(f"unknown pose-graph preconditioner {preconditioner!r}")
+    return kind
 
 
 def _whitened_residuals(poses: se3.Pose3, graph: PoseGraph):
@@ -124,6 +136,67 @@ def _gradient_and_diag(idx_i, idx_j, r, Ji, Jj, P: int):
     return g, D
 
 
+def _odometry_chain(idx_i, idx_j, Ji, Jj, P: int):
+    """The odometry factors' block-tridiagonal Hessian, gauge-fixed: the
+    couplings ``U`` (P-1, 6, 6) with ``U[0] = 0`` and the diagonal blocks
+    (P, 6, 6) with the identity at pose 0."""
+    Ji_o, Jj_o = Ji[: P - 1], Jj[: P - 1]
+    U = Ji_o.transpose(-1, -2) @ Jj_o
+    U[0] = 0.0
+    D_odo = _segment_sum(Ji_o.transpose(-1, -2) @ Ji_o, idx_i[: P - 1], P) + _segment_sum(
+        Jj_o.transpose(-1, -2) @ Jj_o, idx_j[: P - 1], P)
+    D_odo[0] = torch.eye(6, dtype=D_odo.dtype, device=D_odo.device)
+    return U, D_odo
+
+
+def _lc_columns(graph: PoseGraph, Ji, Jj, P: int):
+    """The loop-closure factors' Woodbury column blocks ``A^T`` (L, 6, 6) at
+    each endpoint; blocks touching the gauge pose vanish."""
+    Ji_l = torch.where((graph.lc_i == 0)[:, None, None], 0.0, Ji[P - 1:])
+    Jj_l = torch.where((graph.lc_j == 0)[:, None, None], 0.0, Jj[P - 1:])
+    return Ji_l.transpose(-1, -2), Jj_l.transpose(-1, -2)
+
+
+def woodbury_columns(cols_i: torch.Tensor, cols_j: torch.Tensor, idx_i: torch.Tensor, idx_j: torch.Tensor,
+                     P: int) -> torch.Tensor:
+    """Low-rank columns ``V`` (P, 6, c F) of F factors: factor f's column
+    block (6, c) ``cols_i[f]`` sits at pose ``idx_i[f]`` and ``cols_j[f]`` at
+    ``idx_j[f]``.  Built by a scatter into zeros (``index_put_`` with
+    accumulation); the JAX package builds the same values by a one-hot
+    product, because a scatter with traced indices is slow on a TPU."""
+    F_, _, c = cols_i.shape
+    ar = torch.arange(F_, device=cols_i.device)
+    V = torch.zeros((P, F_, 6, c), dtype=cols_i.dtype, device=cols_i.device)
+    V.index_put_((idx_i, ar), cols_i, accumulate=True)
+    V.index_put_((idx_j, ar), cols_j, accumulate=True)
+    return V.permute(0, 2, 1, 3).reshape(P, 6, c * F_)
+
+
+def columns_t(cols_i, cols_j, idx_i, idx_j, W: torch.Tensor) -> torch.Tensor:
+    """``V^T W`` (c F, n) for the columns of :func:`woodbury_columns` and
+    ``W`` (P, 6, n), by gathering W at each factor's two poses."""
+    F_, _, c = cols_i.shape
+    VW = cols_i.transpose(-1, -2) @ W[idx_i] + cols_j.transpose(-1, -2) @ W[idx_j]
+    return VW.reshape(c * F_, *W.shape[2:])
+
+
+def lowrank_diag_blocks(Wv: torch.Tensor, L_cap: torch.Tensor) -> torch.Tensor:
+    """The (P, 6, 6) diagonal blocks of ``Wv C^-1 Wv^T`` for ``Wv`` (P, 6, n)
+    and the Cholesky factor ``L_cap`` of ``C``: ``X_p X_p^T`` with ``X = Wv
+    L_cap^-T``, one triangular solve against every pose block at once."""
+    P, _, n = Wv.shape
+    X = torch.linalg.solve_triangular(L_cap.transpose(-1, -2), Wv.reshape(P * 6, n), upper=True, left=False)
+    X = X.reshape(P, 6, n)
+    return X @ X.transpose(-1, -2)
+
+
+def _cholesky_or_nan(A: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky factor, NaN where the factorisation fails (as
+    ``jnp.linalg.cholesky``)."""
+    L, info = torch.linalg.cholesky_ex(A)
+    return torch.where((info != 0).reshape(info.shape + (1, 1)), float("nan"), L)
+
+
 def _direct_lm_step(graph, idx_i, idx_j, Ji, Jj, g, D, lam, P: int, L_lc: int):
     """Exact damped-LM step (P, 6) for damping ``lam`` — the JAX package's
     ``_direct_lm_step_multi`` for one damping value (its damping sweep is on
@@ -138,36 +211,114 @@ def _direct_lm_step(graph, idx_i, idx_j, Ji, Jj, g, D, lam, P: int, L_lc: int):
 
     dtype, dev = D.dtype, D.device
     eye6 = torch.eye(6, dtype=dtype, device=dev)
-    Ji_o, Jj_o = Ji[: P - 1], Jj[: P - 1]
-    U = Ji_o.transpose(-1, -2) @ Jj_o
-    U[0] = 0.0
-    D_odo = _segment_sum(Ji_o.transpose(-1, -2) @ Ji_o, idx_i[: P - 1], P) + _segment_sum(
-        Jj_o.transpose(-1, -2) @ Jj_o, idx_j[: P - 1], P)
-    D_odo[0] = eye6
+    U, D_odo = _odometry_chain(idx_i, idx_j, Ji, Jj, P)
     T_diag = D_odo + lam * D + 1e-6 * eye6
     if L_lc == 0:
         delta = solve_block_tridiag_multi(T_diag, U, -g[..., None])[..., 0]
         delta[0] = 0.0
         return delta
 
-    Ji_l = torch.where((graph.lc_i == 0)[:, None, None], 0.0, Ji[P - 1:])
-    Jj_l = torch.where((graph.lc_j == 0)[:, None, None], 0.0, Jj[P - 1:])
-    # V[p, b, l, a] = A_l[a, b] for p the pose A_l's block touches
-    ar = torch.arange(L_lc, device=dev)
-    V = torch.zeros((P, L_lc, 6, 6), dtype=dtype, device=dev)
-    V.index_put_((graph.lc_i, ar), Ji_l.transpose(-1, -2), accumulate=True)
-    V.index_put_((graph.lc_j, ar), Jj_l.transpose(-1, -2), accumulate=True)
-    V = V.permute(0, 2, 1, 3).reshape(P, 6, 6 * L_lc)
-
+    cols_i, cols_j = _lc_columns(graph, Ji, Jj, P)
+    V = woodbury_columns(cols_i, cols_j, graph.lc_i, graph.lc_j, P)
     W = solve_block_tridiag_multi(T_diag, U, torch.cat([(-g)[:, :, None], V], dim=2))
     w0, Wv = W[:, :, 0], W[:, :, 1:]
-    AW = Ji_l @ Wv[graph.lc_i] + Jj_l @ Wv[graph.lc_j]  # (L, 6, 6L)
-    C = AW.reshape(6 * L_lc, 6 * L_lc) + torch.eye(6 * L_lc, dtype=dtype, device=dev)
-    c0 = ((Ji_l @ w0[graph.lc_i][..., None]) + (Jj_l @ w0[graph.lc_j][..., None])).reshape(-1)
+    C = columns_t(cols_i, cols_j, graph.lc_i, graph.lc_j, Wv) + torch.eye(6 * L_lc, dtype=dtype, device=dev)
+    c0 = columns_t(cols_i, cols_j, graph.lc_i, graph.lc_j, w0[..., None])[:, 0]
     y = cholesky_solve_or_nan(0.5 * (C + C.T), c0)
     delta = w0 - Wv @ y
     delta[0] = 0.0
     return delta
+
+
+def _make_matvec(idx_i, idx_j, Ji, Jj, P: int, lam, D):
+    """``v -> (H + lam*blockdiag(D)) v`` with H applied factor-wise (gather,
+    batched 6x6 products, segment sums); pose 0 is the gauge, its row is
+    the identity on a zeroed block."""
+    Ji_t, Jj_t = Ji.transpose(-1, -2), Jj.transpose(-1, -2)
+
+    def matvec(v):  # (P, 6)
+        v = torch.cat([torch.zeros_like(v[:1]), v[1:]])
+        a = (Ji @ v[idx_i][..., None] + Jj @ v[idx_j][..., None])[..., 0]
+        out = _segment_sum((Ji_t @ a[..., None])[..., 0], idx_i, P) + _segment_sum(
+            (Jj_t @ a[..., None])[..., 0], idx_j, P)
+        out = out + lam * (D @ v[..., None])[..., 0]
+        out[0] = 0.0
+        return out
+
+    return matvec
+
+
+def _pcg(matvec, b: torch.Tensor, precond, tol: float, max_iters: int, chunk: int = CG_CHUNK):
+    """Preconditioned CG on the (P, 6) block vector space, from ``x = 0``,
+    until ``||r|| <= tol ||b||`` or ``max_iters``; returns (x, iterations).
+
+    The JAX package's ``while_loop`` tests the residual before every
+    iteration.  Here the iterations run in chunks of ``chunk`` with the test
+    on the device: an iteration whose residual already passed is masked out
+    (x, r, p and the count stay), so the result and the count are those of
+    the JAX loop, and the host reads the flag once per chunk."""
+
+    def dot(a, c):
+        return torch.sum(a * c)
+
+    x = torch.zeros_like(b)
+    r = b
+    z = precond(r)
+    p = z
+    rz = dot(r, z)
+    thresh = tol * torch.clamp(torch.sqrt(dot(b, b)), min=1e-30)
+    active = torch.sqrt(dot(r, r)) > thresh
+    k = torch.zeros((), dtype=torch.int64, device=b.device)
+    done = n_iters = 0
+    while done < max_iters:
+        for _ in range(min(chunk, max_iters - done)):
+            Ap = matvec(p)
+            alpha = rz / torch.clamp(dot(p, Ap), min=1e-30)
+            x = torch.where(active, x + alpha * p, x)
+            r_new = r - alpha * Ap
+            z = precond(r_new)
+            rz_new = dot(r_new, z)
+            p = torch.where(active, z + (rz_new / torch.clamp(rz, min=1e-30)) * p, p)
+            r = torch.where(active, r_new, r)
+            rz = torch.where(active, rz_new, rz)
+            k = k + active.to(k.dtype)
+            active = active & (torch.sqrt(dot(r, r)) > thresh)
+        done += min(chunk, max_iters - done)
+        still, n_iters = torch.stack([active.to(k.dtype), k]).tolist()
+        if not still:
+            break
+    return x, n_iters
+
+
+def _pcg_lm_step(kind: str, idx_i, idx_j, Ji, Jj, g, D, lam, P: int, cfg: PoseGraphConfig):
+    """Damped-LM step by PCG on the factor-wise Hessian; returns (delta, CG
+    iterations).  Preconditioners of the damped diagonal ``Dp``: its 6x6
+    blocks (``"jacobi"``), or the odometry chain on ``Dp`` cut into segments
+    of ``cfg.tridiag_segment``, solved by cyclic reduction per application
+    (``"tridiag"``) or inverted densely once per trial (``"dense_seg"``)."""
+    from .tridiag import (apply_dense_segment_inverses, auto_dense_segment, dense_segment_inverses,
+                          solve_block_tridiag_segmented)
+
+    Dp = D * (1.0 + lam) + 1e-6 * torch.eye(6, dtype=D.dtype, device=D.device)
+    if kind == "jacobi":
+        L = _cholesky_or_nan(Dp)
+
+        def precond(v):
+            return torch.cholesky_solve(v[..., None], L)[..., 0]
+    else:
+        U = Ji[: P - 1].transpose(-1, -2) @ Jj[: P - 1]
+        U[0] = 0.0  # pose 0 is the gauge: decouple it (its Dp block is the identity)
+        if kind == "dense_seg":
+            Minv = dense_segment_inverses(Dp, U, auto_dense_segment(P, cfg.tridiag_segment))
+
+            def precond(v):
+                return apply_dense_segment_inverses(Minv, v)
+        else:
+            def precond(v):
+                return solve_block_tridiag_segmented(Dp, U, v, cfg.tridiag_segment)
+
+    matvec = _make_matvec(idx_i, idx_j, Ji, Jj, P, lam, D)
+    return _pcg(matvec, -g, precond, cfg.cg_tol, cfg.cg_max_iters)
 
 
 def solve_pose_graph(graph: PoseGraph, cfg: PoseGraphConfig = PoseGraphConfig()):
@@ -176,10 +327,11 @@ def solve_pose_graph(graph: PoseGraph, cfg: PoseGraphConfig = PoseGraphConfig())
     One Python iteration per LM trial (damping *0.3 on accept, *10 on
     reject): the accept/reject and damping update stay on the device; the
     stall counter (two consecutive trials improving the error by < 1e-6
-    relative end the solve) costs one host read per trial."""
+    relative end the solve) costs one host read per trial, and a PCG step
+    one per :data:`CG_CHUNK` CG iterations."""
     P = graph.poses0.t.shape[0]
     L_lc = graph.lc_i.shape[0]
-    resolve_pg_solver_kind(cfg.preconditioner, P, L_lc)
+    kind = resolve_pg_solver_kind(cfg.preconditioner, P, L_lc)
     if tuple(cfg.lam_sweep_factors) != (1.0,):
         raise NotImplementedError(
             "lam_sweep_factors (the damping sweep) is an opt-in negative result on ROADMAP's "
@@ -193,12 +345,16 @@ def solve_pose_graph(graph: PoseGraph, cfg: PoseGraphConfig = PoseGraphConfig())
     err0 = graph_error(poses, graph)
     err = err0
     lam = torch.tensor(1e-4, dtype=dtype, device=dev)
-    k = stall = 0
+    k = stall = cg_total = 0
     while k < cfg.max_gn_iters and stall < 2:
         idx_i, idx_j, r, Ji, Jj = _build_normal_terms(poses, graph)
         g, D = _gradient_and_diag(idx_i, idx_j, r, Ji, Jj, P)
         lam = torch.clamp(lam, 1e-9, 1e6)
-        delta = _direct_lm_step(graph, idx_i, idx_j, Ji, Jj, g, D, lam, P, L_lc)
+        if kind == "direct":
+            delta = _direct_lm_step(graph, idx_i, idx_j, Ji, Jj, g, D, lam, P, L_lc)
+        else:
+            delta, cg_k = _pcg_lm_step(kind, idx_i, idx_j, Ji, Jj, g, D, lam, P, cfg)
+            cg_total += cg_k
         cand = se3.where(not_gauge, se3.retract(poses, delta), poses)
         new_err = graph_error(cand, graph)
         good = torch.isfinite(new_err) & (new_err < err)
@@ -208,7 +364,44 @@ def solve_pose_graph(graph: PoseGraph, cfg: PoseGraphConfig = PoseGraphConfig())
         lam = torch.where(good, torch.clamp(lam * 0.3, min=1e-9), torch.clamp(lam * 10.0, max=1e6))
         k += 1
         stall = 0 if bool(improved) else stall + 1
-    return poses, SolveInfo(error0=err0, error=err, iterations=k, stall=stall)
+    return poses, SolveInfo(error0=err0, error=err, iterations=k, stall=stall, cg_iters_total=cg_total,
+                            solver_kind=kind)
+
+
+def pg_pose_marginals(graph: PoseGraph, poses: se3.Pose3) -> torch.Tensor:
+    """(P, 6, 6) exact marginal covariance blocks of the pose-graph estimate,
+    linearized at ``poses``; pose 0 is the gauge (zero covariance).
+
+        H = T + V V^T,  diag(H^-1)_p = diag(T^-1)_p - Wv_p C^-1 Wv_p^T
+
+    with ``T`` the gauge-fixed odometry chain (selected inversion along the
+    cyclic-reduction levels), ``V`` the loop-closure columns (6 per factor;
+    loop closures subtract uncertainty), ``Wv = T^-1 V`` from one multi-RHS
+    cyclic reduction and ``C = I + V^T T^-1 V``.
+
+    The Jacobians are float32, as the solver's; the rest runs in float64 and
+    the result is float64.  The variances inside one block span decades (a
+    1 mm odometry z beside metres of drift in x, y), and each reduction
+    level costs float32 about a bit where the reduced chain softens: in
+    float32 the smaller sigmas would be off by a few 1e-3 relative."""
+    from .tridiag import block_tridiag_selected_inverse, solve_block_tridiag_multi
+
+    P = poses.t.shape[0]
+    L = int(graph.lc_i.shape[0])
+    dtype, dev = torch.float64, poses.t.device
+    idx_i, idx_j, _, Ji, Jj = _build_normal_terms(poses, graph)
+    Ji, Jj = Ji.to(dtype), Jj.to(dtype)
+    U, D_odo = _odometry_chain(idx_i, idx_j, Ji, Jj, P)
+    T_diag = D_odo + 1e-6 * torch.eye(6, dtype=dtype, device=dev)
+    T_diag[0] = torch.eye(6, dtype=dtype, device=dev)
+    cov = block_tridiag_selected_inverse(T_diag, U)
+    if L > 0:
+        cols_i, cols_j = _lc_columns(graph, Ji, Jj, P)
+        Wv = solve_block_tridiag_multi(T_diag, U, woodbury_columns(cols_i, cols_j, graph.lc_i, graph.lc_j, P))
+        C = columns_t(cols_i, cols_j, graph.lc_i, graph.lc_j, Wv) + torch.eye(6 * L, dtype=dtype, device=dev)
+        cov = cov - lowrank_diag_blocks(Wv, _cholesky_or_nan(0.5 * (C + C.T)))
+    cov[0] = 0.0
+    return cov
 
 
 def build_chain_graph(dr_rows_list, lc_i, lc_j, lc_meas: se3.Pose3, lc_sigmas, lc_valid,

@@ -1,6 +1,6 @@
 """The port's own copies of the JAX package's numpy-only modules
-(``config``, ``pairs``, ``synthetic``, ``io``, ``dumps``) against the
-originals.  Tolerance: none — the copies run the same numpy code, so every
+(``config``, ``pairs``, ``synthetic``, ``io``, ``dumps``, ``viz.write_png``)
+against the originals.  Tolerance: none — the copies run the same numpy code, so every
 value, array and written byte is identical.
 """
 
@@ -16,7 +16,8 @@ from diasss_tpu import dumps as jdumps
 from diasss_tpu import io as jio
 from diasss_tpu import pairs as jpairs
 from diasss_tpu import synthetic as jsyn
-from diasss_tpu_torch import config, dumps, io, pairs, synthetic
+from diasss_tpu import viz as jviz
+from diasss_tpu_torch import config, dumps, io, pairs, synthetic, viz
 
 
 def _tree(cfg):
@@ -128,3 +129,11 @@ def test_write_reference_dumps_identical(tmp_path):
     jdumps.write_reference_dumps(str(tmp_path / "jax"), result, kps)
     a, b = _read_tree(tmp_path / "port"), _read_tree(tmp_path / "jax")
     assert len(a) >= 15 and a == b
+
+
+@pytest.mark.parametrize("shape", [(1, 1, 3), (7, 13, 3), (64, 200, 3)])
+def test_write_png_bytes_identical(tmp_path, shape):
+    rgb = np.random.default_rng(shape[1]).integers(0, 256, shape).astype(np.float64)
+    viz.write_png(str(tmp_path / "port.png"), rgb)
+    jviz.write_png(str(tmp_path / "jax.png"), rgb)
+    assert (tmp_path / "port.png").read_bytes() == (tmp_path / "jax.png").read_bytes()

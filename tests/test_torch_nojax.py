@@ -1,5 +1,6 @@
-"""The port imports neither JAX nor the JAX package, and the chip smoke test
-has no CPU path.
+"""The port imports neither JAX nor the JAX package (on the annotation,
+detected and automatic paths with the pose marginals and the mosaic), and
+the chip smoke test has no CPU path.
 
 Both run in fresh interpreters: this test process has imported jax already
 (tests/conftest.py).
@@ -22,7 +23,8 @@ import diasss_tpu_torch.features.fast_cuda, diasss_tpu_torch.matching.dense_cuda
 from diasss_tpu_torch.config import DetectorConfig, PipelineConfig, PoseGraphConfig, automatic_config
 from diasss_tpu_torch.synthetic import make_survey
 from diasss_tpu_torch.frame import build_keyframes_batch
-from diasss_tpu_torch.pipeline import run_slam
+from diasss_tpu_torch.mosaic import build_mosaic
+from diasss_tpu_torch.pipeline import _estimated_geo, run_slam
 
 torch.set_num_threads(2)
 survey = make_survey(n_lines=2, n_pings=120, n_bins=256, n_landmarks=30, seed=2)
@@ -31,11 +33,16 @@ frames = build_keyframes_batch(
     device="cpu")
 gt = [l.gt_poses for l in survey.lines]
 auto = automatic_config()
-auto = dataclasses.replace(auto, detector=dataclasses.replace(auto.detector, n_features=200))
-for cfg in (PipelineConfig(), PipelineConfig(detector=DetectorConfig(n_features=200),
-                                             pose_graph=PoseGraphConfig(use_anno=False)), auto):
+auto = dataclasses.replace(auto, detector=dataclasses.replace(auto.detector, n_features=200),
+                           full_ba=dataclasses.replace(auto.full_ba, marginals=True))
+for cfg in (PipelineConfig(pose_graph=PoseGraphConfig(marginals=True)),
+            PipelineConfig(detector=DetectorConfig(n_features=200), pose_graph=PoseGraphConfig(use_anno=False)),
+            auto):
     result = run_slam(frames, cfg, gt_rows_list=gt)
     assert result.ate_est is not None
+    marginals = cfg.full_ba.marginals if cfg.estimator == "full_ba" else cfg.pose_graph.marginals
+    assert (result.pose_sigmas is not None) == marginals
+mosaic = build_mosaic(frames, geo_list=_estimated_geo(frames, result.poses))[0]
 leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
 print("JAX_MODULES", leaked)
 pkg = sorted(m for m in sys.modules if m == "diasss_tpu" or m.startswith("diasss_tpu."))

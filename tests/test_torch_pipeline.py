@@ -17,6 +17,7 @@ import json
 
 import numpy as np
 import pytest
+import torch
 
 from torch_parity_helpers import JaxRng, jax_and_port_frames, port_cfg, small_survey
 from diasss_tpu.config import DetectorConfig, FullBAConfig, MatcherConfig, PipelineConfig, PoseGraphConfig
@@ -104,11 +105,20 @@ def test_detected_run_through_port_detector(detected_runs):
     (PipelineConfig(estimator="full_ba", full_ba=FullBAConfig(marginals=True)), "A9"),
     (PipelineConfig(mesh_devices=4), "A14"),
     (PipelineConfig(pose_graph=PoseGraphConfig(marginals=True)), "A9"),
-    (PipelineConfig(estimator="full_ba", full_ba=FullBAConfig(preconditioner="dense_seg")), "A7"),
+    (PipelineConfig(estimator="full_ba", full_ba=FullBAConfig(preconditioner="dense_seg", tridiag_segment=32,
+                                                              max_iters=6)), "A7"),
     (PipelineConfig(detector=DetectorConfig(descriptor="geo_patch"), pose_graph=PoseGraphConfig(use_anno=False)),
      "A11"),
 ])
 def test_unported_options_raise_naming_roadmap(frames, cfg, item):
+    """Options still unported raise, naming their ROADMAP item; those ported
+    since (A9: the pose marginals, A7: the PCG family) run."""
+    if item in ("A7", "A9"):
+        result = run_slam(frames[1], port_cfg(cfg), rng=JaxRng())
+        assert torch.isfinite(result.poses.t).all()
+        assert result.counters == {f"solver_{'dense_seg' if item == 'A7' else 'direct'}_solves": 1}
+        assert (result.pose_sigmas is not None) == (item == "A9")
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         run_slam(frames[1], port_cfg(cfg))
 
@@ -145,9 +155,17 @@ def test_cli_runs_and_writes_metrics(survey_dirs, tmp_path):
     (["--mesh", "2"], "A14"),
     (["--detected", "--descriptor", "orb"], "A11"),
 ])
-def test_cli_rejects_unported_flags(survey_dirs, capsys, flags, item):
+def test_cli_rejects_unported_flags(survey_dirs, capsys, flags, item, tmp_path, monkeypatch):
+    """Flags still unported exit naming their ROADMAP item; ``--metrics``
+    without ``--no-marginals`` (A9, ported since) reports the marginals."""
     from diasss_tpu_torch.cli import main
 
+    if item == "A9":
+        monkeypatch.chdir(tmp_path)
+        assert main(survey_dirs + flags) == 0
+        m = json.loads((tmp_path / "m.json").read_text())
+        assert len(m["pose_sigma_mean"]) == 6 and m["pose_sigma_max_xy"] > 0
+        return
     with pytest.raises(SystemExit) as exc:
         main(survey_dirs + flags)
     assert exc.value.code == 2

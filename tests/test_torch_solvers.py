@@ -195,9 +195,13 @@ def test_direct_pose_graph_solve_matches_jax(graph_problem):
     (PoseGraphConfig(), 1025),
 ])
 def test_unported_solver_kinds_raise(cfg, n_lc):
+    """Only "chain" (ROADMAP's not-to-port list) still raises; the PCG kinds
+    and "auto" above the direct step's 1024 factors resolve."""
     assert pose_graph.resolve_pg_solver_kind("auto", 100, 10) == "direct"
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        pose_graph.resolve_pg_solver_kind(cfg.preconditioner, 3000, n_lc)
+    expected = "dense_seg" if cfg.preconditioner == "auto" else cfg.preconditioner
+    assert pose_graph.resolve_pg_solver_kind(cfg.preconditioner, 3000, n_lc) == expected
+    with pytest.raises(NotImplementedError, match="not-to-port"):
+        pose_graph.resolve_pg_solver_kind("chain", 3000, n_lc)
 
 
 def test_damping_sweep_is_not_ported(graph_problem):
