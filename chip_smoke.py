@@ -23,7 +23,8 @@ Phases (every one asserts; nothing is caught):
    keypoint slots): one warm-up pass, which also records the inputs of the
    dense correlation (``_correlate``) and of B2 in each round;
 4. B2: hold the q-correlation kernel against ``qcorr_plain`` on seeded
-   random windows at (12000, 59, 59) T=43 and (12000, 35, 35) T=19, and on
+   random windows at (12000, 59, 59) T=43, (12000, 35, 35) T=19 and
+   (2000, 59, 59) T=43 (one pair of the online stream), and on
    the recorded real windows: max abs error at most 2e-5 (the kernel fuses
    each multiply-add, the plain version rounds twice); on the recorded
    round-0 inputs ``_correlate`` finds the same best offset from both maps
@@ -50,11 +51,32 @@ Phases (every one asserts; nothing is caught):
    against the direct pass's) and of the exact pose marginals (12000:
    ``pose_graph.marginals``; 4200: ``full_ba.marginals``); and the
    marginals of the 12000-pose chain with 1024 loop closures, their memory
-   envelope.
+   envelope;
+9. online automatic (``OnlineSlam(automatic_config())``, this slice's main
+   path): the automatic survey's 4 frames streamed in turn after one
+   warm-up stream, per arrival the poses, new pairs, correspondences in the
+   solve, LM trials, seconds and both kernels' launches; one B1 launch per
+   arriving frame and one B2 launch per pair matched (``match_perpair_pairs``),
+   the poses finite after every arrival, the final ATE below DR and within
+   ``0.1 * max(ATE_DR, 1)`` of a batch run of the same keyframes with
+   ``rematch_iters=0``;
+10. online windows: the 12000-pose annotation survey streamed two-stage with
+    ``window_frames=4`` and the 4200-pose full-BA survey with
+    ``window_frames=3`` (per arrival seconds, window poses, loop closures in
+    the solve; poses finite and counted);
+11. checkpoint: the 4200-pose full-BA problem solved by
+    ``solve_full_ba_checkpointed`` in chunks of 5 trials, and again resumed
+    from the snapshot of its first chunk, both within 1e-3 m ATE of the
+    one-shot solve, the resumed run paying only the remaining trials; the
+    ``determinism_report`` of two one-shot solves (printed: segment sums by
+    ``index_add_`` add with atomics on the card);
+12. the orb and geo_patch descriptor families on the detected 3000-pose
+    survey with the CLI's settings: warm-up, then a counted pass (one B1
+    launch per frame, matches per pair, ``ate_est <= ate_dr + 1e-2``).
 
 Before the last line it prints the ``kernels`` JSON line (launches from the
-automatic run with the marginals, per phase beside; times, device times and
-bounds measured here) and the
+online automatic stream, per phase beside; times, device times and bounds
+measured here) and the
 card's name and power limit.  The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 There is no CPU path: without CUDA the script exits non-zero.
@@ -84,9 +106,12 @@ SPIN_CYCLES_PER_S = 2e9  # torch.cuda._sleep's cycles per second, about the H100
 B1_INSTR_PER_PIXEL = 160  # fast9.cu: 16 differences, 88 + 32 arc min/max, 4 score and thresholds, 18 NMS
 QCORR_TOL = 2e-5  # fused multiply-adds against the plain version's separate roundings
 B1_LARGE = (4992, 1280)  # a long waterfall as one level
-QCORR_RANDOM = ((12000, 43), (12000, 19))  # (K, T) of the random windows: round 0 and the 8-cell re-match round
+# (K, T) of the random windows: round 0, the 8-cell re-match round, one pair of the online stream
+QCORR_RANDOM = ((12000, 43), (12000, 19), (2000, 43))
 MAX_LC_MARGINALS = 1024  # loop-closure factors of the marginals envelope: the direct step's limit
 PCG_ATE_GATE = {"two_stage": ("abs", 1e-2), "full_ba": ("rel", 0.05)}  # a PCG pass against the direct pass
+ONLINE_WINDOWS = {"two_stage": 4, "full_ba": 3}  # fixed-lag windows (lines) of the streamed 12k and 4.2k surveys
+CKPT_CHUNK = 5  # LM trials per checkpointed chunk
 
 
 def check(ok: bool, msg: str) -> None:
@@ -647,6 +672,216 @@ def auto_marginals_phase(dev, survey, cfg, gt, card):
     return fast_n, qcorr_n
 
 
+def ate_of(frames, poses, gt):
+    """(ATE DR, ATE of ``poses``) against the survey's ground truth."""
+    from diasss_tpu_torch.evaluate import trajectory_ate_pair
+
+    return trajectory_ate_pair(torch.cat([f.dr_poses[:, 3:6] for f in frames]), poses, np.concatenate(gt))
+
+
+def stream(slam, frames, label, card, log=True):
+    """Feed ``frames`` to ``slam`` one at a time; after each arrival check
+    the poses (finite, one frame more) and, with ``log``, print the poses in
+    the solve window, the new gated pairs and those matched, loop closures
+    or correspondences in the solve, LM trials, seconds and both kernels'
+    launches.  Returns the final poses."""
+    from diasss_tpu_torch.diagnostics import check_finite
+    from diasss_tpu_torch.features import fast_cuda
+    from diasss_tpu_torch.matching import dense_cuda
+    from diasss_tpu_torch.pipeline import _overlap_pairs
+
+    sizes = [int(f.dr_poses.shape[0]) for f in frames]
+    bboxes = {}
+    for k, f in enumerate(frames):
+        b1, b2 = fast_cuda.launches, dense_cuda.launches
+        pairs = slam.counters.get("match_perpair_pairs", 0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        poses = slam.add_frame(f)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        bad = check_finite(poses, f"{label} arrival {k}")
+        total = sum(sizes[:k + 1])
+        check(bad == [] and int(poses.t.shape[0]) == total, f"{label} arrival {k}: {bad}, {poses.t.shape[0]} poses")
+        if log:
+            window = sum(sizes[max(0, k + 1 - (slam.window_frames or k + 1)):k + 1])
+            new_pairs = sum(k in p for p in _overlap_pairs(frames[:k + 1], slam.cfg.min_overlap, cache=bboxes))
+            print(f"[{label}] arrival {k}: {total} poses, {window} in the window, new pairs {new_pairs} (matched "
+                  f"{slam.counters.get('match_perpair_pairs', 0) - pairs}), {slam.state.n_lc} in the solve, "
+                  f"LM trials {slam._last_info.iterations}, {seconds:.3f} s, B1 launches {fast_cuda.launches - b1}, "
+                  f"B2 launches {dense_cuda.launches - b2} on {card}")
+    return poses
+
+
+def online_auto_phase(dev, survey, cfg, gt, card):
+    """The automatic profile streamed (this slice's main path): one warm-up
+    stream, then the counted one; returns (B1 launches, B2 launches)."""
+    from diasss_tpu_torch.features import fast_cuda
+    from diasss_tpu_torch.matching import dense_cuda
+    from diasss_tpu_torch.online import OnlineSlam
+    from diasss_tpu_torch.pipeline import run_slam
+
+    stream(OnlineSlam(cfg, device=dev), build_frames(survey, dev), "online auto warm-up", card, log=False)
+    frames = build_frames(survey, dev)
+    slam = OnlineSlam(cfg, device=dev)
+    torch.cuda.synchronize()
+    fast_cuda.launches = dense_cuda.launches = 0
+    t0 = time.perf_counter()
+    poses = stream(slam, frames, "online auto", card)
+    wall = time.perf_counter() - t0
+    fast_n, qcorr_n = fast_cuda.launches, dense_cuda.launches
+    pairs = slam.counters.get("match_perpair_pairs", 0)
+    check(fast_n == len(frames), f"online auto: FAST kernel launched {fast_n} times for {len(frames)} arrivals")
+    check(qcorr_n == pairs > 0, f"online auto: q-correlation kernel launched {qcorr_n} times for {pairs} pairs")
+    ate_dr, ate_online = ate_of(frames, poses, gt)
+    batch = run_slam(frames, dataclasses.replace(cfg, rematch_iters=0), gt_rows_list=gt, run_eval2=False)
+    gap = abs(ate_online - batch.ate_est)
+    print(f"[online auto] {int(poses.t.shape[0])} poses in {wall:.3f} s over {len(frames)} arrivals; ATE DR/online "
+          f"{ate_dr:.4f}/{ate_online:.4f} m, batch (rematch_iters=0) {batch.ate_est:.4f} m, gap {gap:.4f} m (bound "
+          f"{0.1 * max(ate_dr, 1.0):.4f}); FAST launches {fast_n}, q-correlation launches {qcorr_n} for {pairs} "
+          f"pairs on {card}")
+    check(ate_online < ate_dr, f"online auto: no improvement ({ate_online} >= {ate_dr})")
+    check(gap < 0.1 * max(ate_dr, 1.0), f"online auto: ATE {ate_online} against the batch run's {batch.ate_est}")
+    return fast_n, qcorr_n
+
+
+def online_window_phase(dev, card, survey_kw, cfg, window, label):
+    """A survey streamed with a fixed-lag window (per arrival: seconds,
+    window poses, loop closures in the solve); returns the final ATE pair."""
+    from diasss_tpu_torch.online import OnlineSlam
+    from diasss_tpu_torch.synthetic import make_survey
+
+    survey = make_survey(**survey_kw)
+    frames = build_frames(survey, dev)
+    t0 = time.perf_counter()
+    poses = stream(OnlineSlam(cfg, window_frames=window, device=dev), frames, label, card)
+    wall = time.perf_counter() - t0
+    ate_dr, ate_est = ate_of(frames, poses, [l.gt_poses for l in survey.lines])
+    print(f"[{label}] {int(poses.t.shape[0])} poses, {len(frames)} arrivals in {wall:.3f} s, window {window} lines, "
+          f"ATE DR/EST {ate_dr:.4f}/{ate_est:.4f} m on {card}")
+
+
+def checkpoint_phase(dev, card):
+    """The 4200-pose full-BA problem: one-shot, chunked, and resumed from the
+    snapshot of the first chunk; then the determinism report of two
+    one-shot solves."""
+    from diasss_tpu_torch import checkpoint
+    from diasss_tpu_torch.config import PipelineConfig
+    from diasss_tpu_torch.diagnostics import determinism_report
+    from diasss_tpu_torch.pipeline import _assemble_pairs, _overlap_pairs
+    from diasss_tpu_torch.solvers import full_ba
+    from diasss_tpu_torch.synthetic import make_survey
+
+    survey = make_survey(**BA_SURVEY)
+    gt = [l.gt_poses for l in survey.lines]
+    frames = build_frames(survey, dev)
+    cfg = PipelineConfig(min_overlap=0.1, estimator="full_ba")
+    pairs = _overlap_pairs(frames, cfg.min_overlap)
+    prob = full_ba.build_ba_problem(frames, _assemble_pairs(frames, None, pairs, cfg, True)[0], pairs, cfg.full_ba,
+                                    cfg.pose_graph)
+
+    def solve():
+        return full_ba.solve_full_ba(prob, cfg.full_ba, cfg.kp_noise)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref, _, ref_info = solve()
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    _, ate_ref = ate_of(frames, ref, gt)
+    save = checkpoint.save_solver_state
+    trials = []  # trials done at each snapshot
+
+    def counted(path, poses, lam, iterations, *args, **kwargs):
+        trials.append(iterations)
+        save(path, poses, lam, iterations, *args, **kwargs)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "ba_ckpt.npz")
+        checkpoint.save_solver_state = counted
+        t0 = time.perf_counter()
+        try:
+            poses, _, info = checkpoint.solve_full_ba_checkpointed(prob, cfg.full_ba, cfg.kp_noise, path,
+                                                                   chunk=CKPT_CHUNK)
+        finally:
+            checkpoint.save_solver_state = save
+        torch.cuda.synchronize()
+        chunked_s = time.perf_counter() - t0
+        chunked_trials = trials[-1]
+        _, ate_chunked = ate_of(frames, poses, gt)
+
+        def killed(*args, **kwargs):
+            save(*args, **kwargs)
+            raise KeyboardInterrupt("a kill after the first snapshot")
+
+        checkpoint.save_solver_state = killed
+        try:
+            checkpoint.solve_full_ba_checkpointed(prob, cfg.full_ba, cfg.kp_noise, path, chunk=CKPT_CHUNK)
+        except KeyboardInterrupt:
+            pass
+        finally:
+            checkpoint.save_solver_state = save
+        first = checkpoint.load_solver_state(path, dev)["iterations"]
+        trials.clear()
+        checkpoint.save_solver_state = counted
+        t0 = time.perf_counter()
+        try:
+            resumed, _, _ = checkpoint.solve_full_ba_checkpointed(prob, cfg.full_ba, cfg.kp_noise, path,
+                                                                  chunk=CKPT_CHUNK)
+        finally:
+            checkpoint.save_solver_state = save
+        torch.cuda.synchronize()
+        resumed_s = time.perf_counter() - t0
+        _, ate_resumed = ate_of(frames, resumed, gt)
+        check(not os.path.exists(path), "checkpoint: the snapshot outlived the finished solve")
+    # the trial count a snapshot carries is the total since the start: the
+    # resumed run's snapshots continue from the first one's count
+    resumed_total = trials[-1] if trials else first
+    print(f"[checkpoint] full BA {int(ref.t.shape[0])} poses: one-shot {ref_info.iterations} trials {one_s:.3f} s ATE "
+          f"{ate_ref:.4f} m; chunks of {CKPT_CHUNK}: {chunked_trials} trials ({info.iterations} in the last chunk), "
+          f"{chunked_s:.3f} s, ATE {ate_chunked:.4f} m; resumed after {first} trials: {resumed_total - first} more "
+          f"trials ({resumed_total} in all), {resumed_s:.3f} s, ATE {ate_resumed:.4f} m on {card}")
+    check(first == CKPT_CHUNK, f"checkpoint: the first snapshot holds {first} trials")
+    check(abs(ate_chunked - ate_ref) < 1e-3 and abs(ate_resumed - ate_ref) < 1e-3,
+          f"checkpoint: ATE one-shot {ate_ref}, chunked {ate_chunked}, resumed {ate_resumed}")
+    check(all(n > first for n in trials) and resumed_total <= cfg.full_ba.max_iters,
+          f"checkpoint: the resumed run's snapshots hold {trials} trials after a first snapshot of {first}")
+    report = determinism_report(lambda: solve()[0])
+    print(f"[checkpoint] determinism_report of two one-shot full-BA solves on {card}: {report}")
+
+
+def descriptor_phase(dev, card, descriptor):
+    """The detected two-stage path with the CLI's settings for ``descriptor``
+    on the 5-line survey: warm-up, then a counted pass; returns the B1
+    launches."""
+    from diasss_tpu_torch.config import PipelineConfig, detected_config
+    from diasss_tpu_torch.features import fast_cuda
+    from diasss_tpu_torch.pipeline import run_slam
+    from diasss_tpu_torch.synthetic import make_survey
+
+    survey = make_survey(**SURVEY)
+    cfg = detected_config(PipelineConfig(), descriptor)
+    gt = [l.gt_poses for l in survey.lines]
+    run_slam(build_frames(survey, dev), cfg, gt_rows_list=gt, run_eval2=False)  # warm-up
+    frames = build_frames(survey, dev)
+    torch.cuda.synchronize()
+    fast_cuda.launches = 0
+    t0 = time.perf_counter()
+    result = run_slam(frames, cfg, gt_rows_list=gt, run_eval2=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fast_cuda.launches
+    check(launches == len(frames), f"{descriptor}: FAST kernel launched {launches} times for {len(frames)} frames")
+    check_poses(result, descriptor)
+    matches = {f"{i}-{j}": int(r.valid.sum()) for (i, j), r in result.lc_results.items()}
+    print(f"[detected {descriptor}] pairs {len(result.pair_ids)}, matched keypoint pairs {matches}, n_lc_accepted "
+          f"{result.n_lc_accepted}, ATE DR/EST {result.ate_dr:.4f}/{result.ate_est:.4f} m, wall {wall:.3f} s, "
+          f"FAST launches {launches}, counters {json.dumps(result.counters)} on {card}")
+    check(result.ate_est <= result.ate_dr + 1e-2,
+          f"detected {descriptor}: estimate regressed below dead reckoning ({result.ate_est} > {result.ate_dr} + 1e-2)")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device: torch.cuda.is_available() is False", file=sys.stderr)
@@ -700,14 +935,25 @@ def main() -> int:
                      variants=[("full_ba anno marginals", ba(marginals=True)),
                                ("full_ba anno dense_seg", ba(preconditioner="dense_seg"))])
 
+    fast_online, qcorr_online = online_auto_phase(dev, auto_survey, auto_cfg, auto_gt, card)
+    online_window_phase(dev, card, {**SURVEY, "n_lines": 20}, PipelineConfig(), ONLINE_WINDOWS["two_stage"],
+                        "online window anno")
+    online_window_phase(dev, card, BA_SURVEY, PipelineConfig(min_overlap=0.1, estimator="full_ba"),
+                        ONLINE_WINDOWS["full_ba"], "online window full_ba")
+    checkpoint_phase(dev, card)
+    fast_orb = descriptor_phase(dev, card, "orb")
+    fast_geo_patch = descriptor_phase(dev, card, "geo_patch")
+
     print(json.dumps({"kernels": [
         {
             "name": "fast9_two_threshold",
             "route": "cuda",
             "source": "diasss_tpu_torch/csrc/fast9.cu",
             "replaces": "diasss_tpu/features/fast_pallas.py:30",
-            "launches": fast_marg,
-            "launches_by_phase": {"auto": fast_auto, "auto_marginals": fast_marg, "detected": fast_detected},
+            "launches": fast_online,
+            "launches_by_phase": {"auto": fast_auto, "auto_marginals": fast_marg, "detected": fast_detected,
+                                  "online_auto": fast_online, "detected_orb": fast_orb,
+                                  "detected_geo_patch": fast_geo_patch},
             "max_abs_err": fast_err,
             "ms": fast_ms,
             "device_ms": fast_dev_ms,
@@ -722,8 +968,8 @@ def main() -> int:
             "route": "cuda",
             "source": "diasss_tpu_torch/csrc/qcorr.cu",
             "replaces": "diasss_tpu/matching/dense_pallas.py:32",
-            "launches": qcorr_marg,
-            "launches_by_phase": {"auto": qcorr_auto, "auto_marginals": qcorr_marg},
+            "launches": qcorr_online,
+            "launches_by_phase": {"auto": qcorr_auto, "auto_marginals": qcorr_marg, "online_auto": qcorr_online},
             "max_abs_err": q_err,
             "ms": q_ms,
             "device_ms": q_dev_ms,

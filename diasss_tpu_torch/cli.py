@@ -4,9 +4,9 @@ Same folder flags as :mod:`diasss_tpu.cli` (the reference binary's five, plus
 ``--gt``, ``--out``, ``--metrics``, ``--mosaic``), run on one torch device:
 
     python -m diasss_tpu_torch.cli --image DIR --pose DIR --altitude DIR \\
-        --groundrange DIR --annotation DIR [--detected | --auto [--drift-budget M]] \\
-        [--estimator full_ba] [--device cuda] [--gt DIR] \\
-        [--out DIR] [--metrics FILE] [--no-marginals] [--mosaic FILE.png]
+        --groundrange DIR --annotation DIR [--detected [--descriptor sift|orb|geo_patch] \\
+        | --auto [--drift-budget M]] [--estimator full_ba] [--online [--window W]] \\
+        [--device cuda] [--gt DIR] [--out DIR] [--metrics FILE] [--no-marginals] [--mosaic FILE.png]
 
 ``--auto`` runs the automatic profile (dense world-correlation matching,
 joint full BA, drift-compensated re-matching); ``--estimator full_ba`` runs
@@ -14,9 +14,14 @@ the joint BA on annotations.  ``--out`` or ``--metrics`` turn on the exact
 pose marginals of the estimate unless ``--no-marginals`` is given (the dump
 ``est_pose_sigmas_all.txt``, the metrics keys ``pose_sigma_mean`` and
 ``pose_sigma_max_xy``); ``--mosaic`` writes the mosaic rendered from the
-estimated poses.  Flags of features not ported yet (``--online``,
-``--mesh``, non-SIFT descriptors with ``--detected``) exit with an error
-that names their ROADMAP item.
+estimated poses.  ``--online`` streams the lines one at a time through
+:class:`.online.OnlineSlam` (``--window W``: fixed-lag smoothing over the
+newest W lines), prints one line per arrival and the ATE, and with
+``--out`` writes ``online_est_poses_{img_id}.txt`` per line; it computes no
+marginals and writes no metrics.  ``--descriptor orb|geo_patch`` with
+``--detected`` takes the JAX package's matcher settings for that family.
+``--mesh`` is not ported yet and exits with an error that names its ROADMAP
+item.
 """
 
 from __future__ import annotations
@@ -52,7 +57,11 @@ def main(argv=None) -> int:
                         help="--auto: largest credible DR drift between overlapping lines (m)")
     parser.add_argument("--min-overlap", type=float, default=None,
                         help="override the pair-gate IoU threshold (reference: 0.4)")
-    parser.add_argument("--online", action="store_true", help="stream lines incrementally")
+    parser.add_argument("--online", action="store_true",
+                        help="stream survey lines one at a time through the incremental interface "
+                             "(an estimate after every line)")
+    parser.add_argument("--window", type=int, default=None, metavar="W",
+                        help="--online: fixed-lag window of W lines (per-line solve cost stays O(window))")
     parser.add_argument("--mosaic", default=None, metavar="FILE.png",
                         help="write the world mosaic rendered from the estimated poses")
     parser.add_argument("--mesh", type=int, default=None, metavar="N", help="N-device mesh")
@@ -60,15 +69,8 @@ def main(argv=None) -> int:
                         help="skip the exact per-pose marginal covariances that --out/--metrics turn on")
     args = parser.parse_args(argv)
 
-    not_ported = [
-        (args.online, "--online", "A13: online SLAM"),
-        (bool(args.mesh), "--mesh", "A14: multi-device"),
-        (args.detected and not args.auto and args.descriptor != "sift", f"--descriptor {args.descriptor}",
-         "A11: orb/geo_patch descriptors"),
-    ]
-    for hit, flag, item in not_ported:
-        if hit:
-            parser.error(f"{flag} is not ported to diasss_tpu_torch yet (ROADMAP {item})")
+    if args.mesh:
+        parser.error("--mesh is not ported to diasss_tpu_torch yet (ROADMAP A14: multi-device)")
 
     import numpy as np
     import torch
@@ -93,7 +95,7 @@ def main(argv=None) -> int:
         cfg = dataclasses.replace(cfg, min_overlap=args.min_overlap)
     if args.detected and not args.auto:
         cfg = detected_config(cfg, args.descriptor)
-    if (args.out or args.metrics) and not args.no_marginals:
+    if (args.out or args.metrics) and not args.no_marginals and not args.online:
         # a dump or metrics file reports the estimate's pose marginals
         if cfg.estimator == "full_ba":
             cfg = dataclasses.replace(cfg, full_ba=dataclasses.replace(cfg.full_ba, marginals=True))
@@ -115,6 +117,9 @@ def main(argv=None) -> int:
     gt_rows = None
     if args.gt:
         gt_rows = [np.loadtxt(os.path.join(args.gt, f)) for f in sorted(os.listdir(args.gt))]
+
+    if args.online:
+        return _online(frames, cfg, args.window, gt_rows, args.out, device)
 
     t0 = time.perf_counter()
     result = run_slam(frames, cfg, gt_rows_list=gt_rows, out_dir=args.out, run_eval2=not args.no_eval2)
@@ -166,6 +171,33 @@ def main(argv=None) -> int:
         with open(args.metrics, "w") as f:
             json.dump(metrics, f, indent=2, default=float)
         print(f"metrics written to {args.metrics}")
+    return 0
+
+
+def _online(frames, cfg, window, gt_rows, out_dir, device) -> int:
+    """``--online``: stream the loaded lines through :class:`.online.OnlineSlam`."""
+    import numpy as np
+    import torch
+
+    from .evaluate import trajectory_ate_pair
+    from .online import OnlineSlam
+    from .trajectory import save_poses_rpy
+
+    slam = OnlineSlam(cfg, window_frames=window, device=device)
+    for k, f in enumerate(frames):
+        t1 = time.perf_counter()
+        poses = slam.add_frame(f)
+        print(f"frame {k} ({f.img_id}): estimate over {poses.t.shape[0]} pings, {slam.state.n_lc} loop closures "
+              f"in the solve ({time.perf_counter() - t1:.2f}s)")
+    if gt_rows is not None:
+        ate_dr, ate_est = trajectory_ate_pair(torch.cat([f.dr_poses[:, 3:6] for f in frames]), poses,
+                                              np.concatenate(gt_rows))
+        print(f"ATE DR/EST: {ate_dr:.3f} / {ate_est:.3f} m")
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+        for k, f in enumerate(frames):
+            save_poses_rpy(os.path.join(out_dir, f"online_est_poses_{f.img_id}.txt"), slam.frame_poses(k))
+        print(f"online trajectories written to {out_dir}")
     return 0
 
 

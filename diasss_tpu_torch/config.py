@@ -254,12 +254,21 @@ def pair_mode_config() -> PipelineConfig:
 
 
 def detected_config(cfg: PipelineConfig, descriptor: str = "sift") -> PipelineConfig:
-    """``cfg`` with the CLI's ``--detected`` settings (``diasss_tpu/cli.py:118-134``)."""
+    """``cfg`` with the CLI's ``--detected`` settings for ``descriptor``
+    (``diasss_tpu/cli.py:118-134``): ORB with Hamming distances, geo patches
+    with NCC, or SIFT."""
+    if descriptor == "orb":
+        mcfg = MatcherConfig(desc_metric="hamming", ratio_excl_radius=2.0, ratio_test=0.8, cross_check=True,
+                             scc_mode="xy")
+    elif descriptor == "geo_patch":
+        mcfg = MatcherConfig(desc_metric="ncc", cross_check=True, scc_mode="xy")
+    else:
+        mcfg = MatcherConfig(ratio_excl_radius=2.0, ratio_test=0.6, sift_dist_bound=450.0, cross_check=True,
+                             scc_mode="xy")
     return dataclasses.replace(
         cfg,
         detector=DetectorConfig(descriptor=descriptor, desc_size_scale=8.0 / 31.0),
-        matcher=MatcherConfig(ratio_excl_radius=2.0, ratio_test=0.6, sift_dist_bound=450.0,
-                              cross_check=True, scc_mode="xy"),
+        matcher=mcfg,
         pose_graph=PoseGraphConfig(use_anno=False),
     )
 

@@ -3,7 +3,7 @@
 The system has no weights; its state is the trees of arrays the pipeline
 passes between stages.  :func:`to_torch` turns a tree of the JAX package
 (``Keyframe``, ``DetectedFeatures``, ``Pose3``, ``KpsPairs``, ``PoseGraph``,
-``LCResult``, with JAX or numpy leaves) into the port's tree of the same name
+``LCResult``, ``BAProblem``, with JAX or numpy leaves) into the port's tree of the same name
 with tensors on ``device``; :func:`to_numpy` turns a port tree into the same
 tree with numpy leaves, whose fields line up with the JAX type's.  Neither
 imports JAX: JAX arrays convert through ``np.asarray``.
@@ -19,14 +19,16 @@ from .pairs import KpsPairs
 from .features.detector import DetectedFeatures
 from .frame import Keyframe
 from .geometry.se3 import Pose3
+from .solvers.full_ba import BAProblem
 from .solvers.lc import LCResult
 from .solvers.pose_graph import PoseGraph
 
-PORT_TYPES = {cls.__name__: cls for cls in (Keyframe, DetectedFeatures, Pose3, KpsPairs, PoseGraph, LCResult)}
+PORT_TYPES = {cls.__name__: cls for cls in (Keyframe, DetectedFeatures, Pose3, KpsPairs, PoseGraph, LCResult,
+                                            BAProblem)}
 # fields that stay host numpy in both packages
 _HOST_FIELDS = {("Keyframe", "annos"), ("KpsPairs", "pairs"), ("KpsPairs", "valid")}
 # integer fields the port indexes with (int64 indices)
-_INDEX_FIELDS = {("PoseGraph", "lc_i"), ("PoseGraph", "lc_j")}
+_INDEX_FIELDS = {("PoseGraph", "lc_i"), ("PoseGraph", "lc_j"), ("BAProblem", "kp_i"), ("BAProblem", "kp_j")}
 
 
 def _is_tree(x) -> bool:

@@ -5,9 +5,9 @@ FAST-9 at two thresholds with the 3-px frame zeroed and 3x3 NMS for every
 pyramid level of the frame in one :func:`.fast.fast_two_threshold` call (one
 kernel launch on the card); then per level: cells with no corner at the
 initial threshold fall back to the minimum threshold, cell-tiled top-K
-selection with a per-cell cap, intensity-centroid orientation, and SIFT
-descriptors on the blurred level.  Keypoint capacity is static
-(``n_features``) with a validity mask.
+selection with a per-cell cap, intensity-centroid orientation, and SIFT or
+steered binary (ORB) descriptors on the blurred level.  Keypoint capacity
+is static (``n_features``) with a validity mask.
 
 ``jax.lax.top_k`` puts the lower index first among equal values and the
 selection depends on that; ``torch.topk`` promises no tie order, so selection
@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from ..config import DetectorConfig
 
 from .fast import fast_two_threshold
+from .orb_desc import orb_descriptors
 from .orient import ic_angles
 from .pyramid import build_pyramid, gaussian_blur
 from .sift import sift_descriptors
@@ -38,7 +39,7 @@ class DetectedFeatures(NamedTuple):
     angle: torch.Tensor  # (K,) radians
     size: torch.Tensor  # (K,) keypoint size (px, level-0 scale convention)
     level: torch.Tensor  # (K,) int32 pyramid level
-    desc: torch.Tensor  # (K, 128) float32 SIFT descriptors
+    desc: torch.Tensor  # (K, D) float32: 128-d SIFT, 256-d +-1 ORB, or geo patches
     valid: torch.Tensor  # (K,) bool
 
 
@@ -128,7 +129,8 @@ def _detect_level(limg: torch.Tensor, scores, lvl: int, k_level: int, cfg: Detec
     else:
         blurred = gaussian_blur(limg, cfg.blur_ksize, cfg.blur_sigma)
         sizes = torch.full((k_level,), size_lvl * cfg.desc_size_scale, dtype=torch.float32, device=dev)
-        desc = sift_descriptors(blurred, xy, ang, sizes)
+        describe = orb_descriptors if cfg.descriptor == "orb" else sift_descriptors
+        desc = describe(blurred, xy, ang, sizes)
     return DetectedFeatures(
         xy=xy * scale,
         response=resp,
@@ -148,17 +150,14 @@ def detect_features(
 ) -> DetectedFeatures:
     """Detect keypoints + descriptors on a normalized waterfall image;
     keypoints outside ``mask`` are invalidated (frame.cpp:184-195).
-    ``descriptor="sift"`` computes SIFT descriptors; ``"geo_patch"`` returns
-    the (K, 1) zero descriptor, as the JAX package does (its world patches
-    are read by the dense matcher or attached by the pipeline)."""
+    ``descriptor="sift"`` computes SIFT descriptors, ``"orb"`` steered
+    binary ones; ``"geo_patch"`` returns the (K, 1) zero descriptor, as the
+    JAX package does (its world patches are read by the dense matcher or
+    attached by the pipeline)."""
     if stacked:
         raise NotImplementedError(
             "detect_features(stacked=True) is not ported: the single-program "
             "layout is on ROADMAP's not-to-port list (measured slower than per-level)"
-        )
-    if cfg.descriptor not in ("sift", "geo_patch"):
-        raise NotImplementedError(
-            f"descriptor {cfg.descriptor!r} is not ported yet (ROADMAP A11: orb descriptors)"
         )
     img = norm_img.to(torch.float32)
     per_level = features_per_level(cfg.n_features, cfg.n_levels, cfg.scale_factor)

@@ -15,8 +15,13 @@ Counterpart of :mod:`diasss_tpu.matching.dense` (full-map path):
 3. a local displacement-field consistency filter keeps matches that agree
    with the median displacement of their accepted neighbours.
 
-The pair axis is a real batch dimension: all gated pairs' keypoints go into
-one :func:`qcorr` call per match round as ``(pairs * K, S, S)`` windows.
+The stacked matcher (:func:`dense_matching_stacked`, the batch pipeline)
+makes the pair axis a real batch dimension: all gated pairs' keypoints go
+into one :func:`qcorr` call per match round as ``(pairs * K, S, S)``
+windows, every frame rasterized at the survey-common shape.  The per-pair
+matcher (:func:`dense_matching`, the online stream) correlates one pair per
+:func:`qcorr` call against rasters fitted to each frame
+(:func:`world_raster`), so its cells are the JAX package's per-pair cells.
 The JAX package's round-5 lattice branch (``_split_parity_planes``, the
 ``lattice`` argument), which it takes off the TPU, is not ported: the port
 computes the full map on every device.
@@ -31,6 +36,18 @@ import torch
 import torch.nn.functional as F
 
 from ..config import DenseMatchConfig, DetectorConfig
+
+
+class WorldRaster(NamedTuple):
+    """A frame's world-aligned raster (:func:`world_raster`)."""
+
+    img: torch.Tensor  # (H, W) mean normalized intensity (0 where empty)
+    cnt: torch.Tensor  # (H, W) contributing-pixel count
+    ping: torch.Tensor  # (H, W) mean source ping index
+    col: torch.Tensor  # (H, W) mean source bin (column) index
+    x0: float  # world origin of cell (0, 0), a float32 value
+    y0: float
+    res: float
 
 
 class DenseMatches(NamedTuple):
@@ -94,6 +111,25 @@ def _origins(bb: np.ndarray, margin: float):
     """float32 raster origins ``min - margin`` of (F, 4) float32 bounds."""
     m = np.float32(margin)
     return (bb[:, 0] - m).astype(np.float32), (bb[:, 2] - m).astype(np.float32)
+
+
+def raster_shape(geo: torch.Tensor, res: float, margin: float = 2.0):
+    """(height, width) a frame's world raster needs, bucketed to x64."""
+    bb = _geo_bounds_batch(geo[None]).cpu().numpy()[0]
+    return _shape_from_bounds(*bb, res, margin)
+
+
+def world_raster(norm_img: torch.Tensor, geo: torch.Tensor, res: float, margin: float = 2.0,
+                 shape: tuple | None = None) -> WorldRaster:
+    """World-aligned raster of one frame, origin at its geo minimum less
+    ``margin``; ``shape=(H, W)`` overrides the frame-fit dims
+    (:func:`raster_shape`).  One host read of the frame's geo bounds."""
+    bb = _geo_bounds_batch(geo[None]).cpu().numpy()
+    height, width = _shape_from_bounds(*bb[0], res, margin) if shape is None else shape
+    x0, y0 = _origins(bb, margin)
+    img, cnt, ping, col = _rasterize(norm_img[None], geo[None], torch.as_tensor(x0, device=geo.device),
+                                     torch.as_tensor(y0, device=geo.device), res, width, height)
+    return WorldRaster(img[0], cnt[0], ping[0], col[0], float(x0[0]), float(y0[0]), res)
 
 
 def _window_slices(img: torch.Tensor, cnt: torch.Tensor, cy, cx, ext: int, size: int):
@@ -288,6 +324,17 @@ def _smooth_filter_dev(kp_geo, tgt_geo, ok, radius: float, min_neighbors: int, t
     return ok & (nn >= min_neighbors) & (dev <= tol)
 
 
+def _smooth_filter(kp_geo, tgt_geo, ok, cfg: DenseMatchConfig) -> torch.Tensor:
+    """:func:`_smooth_filter_dev` of one keypoint set (K,) with the
+    smoothness settings of ``cfg``; no accepted match short-circuits to an
+    all-False mask (one host read of ``ok.any()``)."""
+    if not bool(ok.any()):
+        return torch.zeros_like(ok)
+    return _smooth_filter_dev(kp_geo.to(torch.float32), tgt_geo.to(torch.float32), ok,
+                              radius=float(cfg.smooth_radius), min_neighbors=int(cfg.smooth_min_neighbors),
+                              tol=float(cfg.smooth_tol))
+
+
 def _dense_pairs_program(rimg, rcnt, rping, rcol, x0s, y0s, geo_kps, kp_valid, si, ti, res: float,
                          half: int, n_ring: int, step_cells: int, ncc_min: float, ncc_ratio: float,
                          min_cover: float, radius: float, min_neighbors: int, tol: float):
@@ -383,3 +430,39 @@ def dense_matching_stacked(pair_ids, img_ids, feats_list, norm_list, geo_list, d
         out[(i, j)] = (rows_s, rows_t, len(idx))
     return out
 
+
+
+def dense_matching(img_id_s: int, img_id_t: int, feats_s, norm_s: torch.Tensor, geo_s: torch.Tensor,
+                   norm_t: torch.Tensor, geo_t: torch.Tensor, det_cfg: DetectorConfig, cfg: DenseMatchConfig,
+                   raster_s: WorldRaster | None = None, raster_t: WorldRaster | None = None):
+    """Match one frame's source keypoints into a target frame by dense world
+    correlation, each frame on its own fitted raster (pass ``raster_s`` /
+    ``raster_t`` to reuse rasters across pairs).  One :func:`qcorr` call.
+    Returns ``(rows_s, rows_t, n_matches)`` in the corres_kps layout."""
+    res = det_cfg.geopatch_res
+    dev = geo_s.device
+    xi = torch.clamp(feats_s.xy[:, 0].to(torch.int32), 0, geo_s.shape[1] - 1).to(torch.int64)
+    yi = torch.clamp(feats_s.xy[:, 1].to(torch.int32), 0, geo_s.shape[0] - 1).to(torch.int64)
+    geo_kp = geo_s[yi, xi]
+    rs = raster_s if raster_s is not None else world_raster(norm_s, geo_s, res)
+    rt = raster_t if raster_t is not None else world_raster(norm_t, geo_t, res)
+
+    def origin(r):
+        return (torch.tensor([r.x0], dtype=torch.float32, device=dev),
+                torch.tensor([r.y0], dtype=torch.float32, device=dev))
+
+    (x0s, y0s), (x0t, y0t) = origin(rs), origin(rt)
+    desc_q, ok_q = _raster_patches(rs.img[None], rs.cnt[None], x0s, y0s, res, geo_kp[None], det_cfg.geopatch_half,
+                                   cfg.min_cover)
+    dm = _correlate(desc_q, ok_q & feats_s.valid[None], geo_kp[None], rt.img[None], rt.cnt[None], rt.ping[None],
+                    rt.col[None], x0t, y0t, res, half=det_cfg.geopatch_half,
+                    n_ring=int(np.ceil(cfg.search_radius / res)), step_cells=cfg.step_cells, ncc_min=cfg.ncc_min,
+                    ncc_ratio=cfg.ncc_ratio, min_cover=cfg.min_cover)
+    keep = _smooth_filter(geo_kp, dm.tgt_geo[0], dm.ok[0], cfg)
+    K = keep.shape[0]
+    host = torch.cat([torch.stack([keep.to(torch.float32), dm.tgt_ping[0], dm.tgt_col[0]]).reshape(-1),
+                      feats_s.xy.reshape(-1)]).cpu().numpy()
+    keep_np, ping_np, col_np = host[:K] > 0, host[K:2 * K], host[2 * K:3 * K]
+    idx = np.nonzero(keep_np)[0]
+    rows_s, rows_t = _corres_rows(img_id_s, img_id_t, host[3 * K:].reshape(-1, 2), idx, ping_np, col_np)
+    return rows_s, rows_t, len(idx)

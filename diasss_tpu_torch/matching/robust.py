@@ -18,7 +18,7 @@ from ..config import MatcherConfig
 
 from ..features.detector import DetectedFeatures
 from ..geometry.sonar import geo_bbox
-from .geosearch import check_metric, nn_core
+from .geosearch import accept_bound, nn_core
 from .scc import scc_filter
 
 
@@ -82,8 +82,9 @@ def _merge_directions(img_id_s, img_id_t, xy_s, xy_t, c1, c2, inl1, inl2, m1, m2
 
 def _nn_scc_both(g_s, f_s, bb_s, g_t, f_t, bb_t, parity, rows_s, rows_t, rng, cfg):
     """Both directions of NN search + SCC.  Every argument may carry the same
-    leading pair dims (stacked path) or none (one pair)."""
-    bound = torch.full(parity.shape, cfg.sift_dist_bound, dtype=torch.float32, device=parity.device)
+    leading pair dims (stacked path) or none (one pair); the accept bound
+    follows each pair's id parity (:func:`.geosearch.accept_bound`)."""
+    bound = accept_bound(cfg, parity)
     nn1 = nn_core(g_s, f_s.desc, f_s.valid, g_t, f_t.desc, f_t.valid, bb_t, bound, cfg)
     nn2 = nn_core(g_t, f_t.desc, f_t.valid, g_s, f_s.desc, f_s.valid, bb_s, bound, cfg)
     c1, c2 = nn1.corres, nn2.corres
@@ -111,7 +112,6 @@ def robust_matching_stacked(pair_ids, img_ids, feats_list, geo_list, rows_list, 
     ``{(i, j): MatchResult}``."""
     if not pair_ids:
         return {}
-    check_metric(cfg)
     dev = feats_list[0].xy.device
     feats = DetectedFeatures(*[torch.stack(f) for f in zip(*feats_list)])
     geo_kp = torch.stack([kp_geo(f, g) for f, g in zip(feats_list, geo_list)])
@@ -138,7 +138,6 @@ def robust_matching(img_id_s, img_id_t, feats_s, feats_t, geo_s, geo_t, rows_s: 
                     rng, cfg: MatcherConfig = MatcherConfig()) -> MatchResult:
     """One pair's robust matching; the two frames may hold different
     keypoint capacities."""
-    check_metric(cfg)
     dev = feats_s.xy.device
     parity = torch.as_tensor(img_id_s % 2 != img_id_t % 2, device=dev)
     scc1, scc2 = _nn_scc_both(

@@ -17,9 +17,9 @@ search extent shrinks to the measured residual, and the solve is
 warm-started.  The automatic profile (``config.automatic_config()``) runs
 detection, dense matching, full BA and two re-match rounds.
 
-Not ported yet, and raising with their ROADMAP item: ``mesh_devices`` (A14),
-geo-patch descriptors with the keypoint matcher (A11), and surveys whose
-lines differ in bin count (A8).
+Not ported yet, and raising with their ROADMAP item: ``mesh_devices`` (A14)
+and surveys whose lines differ in bin count (A8).  The per-pair matchers
+(``stacked=False``) serve the online stream (:mod:`.online`).
 
 Stage times go to ``SlamResult.timings`` (seconds, each stage ended by a
 device synchronise) and path counters to ``SlamResult.counters``.
@@ -42,6 +42,7 @@ from .evaluate import Eval1Result, Eval2Result
 from .frame import Keyframe
 from .geometry import se3
 from .geometry.sonar import geo_bbox
+from .padding import pad_rows_tree
 from .rng import TorchRng
 from .solvers.lc import LCResult
 
@@ -88,8 +89,6 @@ def _check_supported(frames, cfg: PipelineConfig) -> None:
         raise ValueError(f"unknown estimator {cfg.estimator!r}")
     if cfg.mesh_devices:
         todo("mesh_devices (multi-device solves and matching)", "A14: multi-device")
-    if not cfg.pose_graph.use_anno and cfg.matcher.mode == "kp" and cfg.detector.descriptor == "geo_patch":
-        todo("geo_patch descriptors with the keypoint matcher", "A11: geo_patch attach")
     if len({int(f.geo.shape[1]) for f in frames}) > 1:
         todo("surveys whose lines differ in bin count", "A8: mixed-shape surveys")
 
@@ -107,15 +106,25 @@ def _stack_padded(tensors: List[torch.Tensor]) -> torch.Tensor:
                         for t in tensors])
 
 
-def _overlap_pairs(frames: List[Keyframe], min_overlap: float) -> List[Tuple[int, int]]:
+def _overlap_pairs(frames: List[Keyframe], min_overlap: float,
+                   cache: Optional[dict] = None) -> List[Tuple[int, int]]:
     """Pair gating by geo bbox IoU (diasss2.cpp:88-97): one batched bbox
-    reduction per frame shape, the IoU arithmetic on the host."""
+    reduction per frame shape, the IoU arithmetic on the host.  ``cache``:
+    an ``{id(frame): bbox}`` dict of a streaming caller (the online stream),
+    so each arrival reduces only the new frame's geo; the caller keeps the
+    frames alive while the cache is used."""
     bb = np.zeros((len(frames), 4), np.float64)
     by_shape: dict = {}
     for k, f in enumerate(frames):
-        by_shape.setdefault(tuple(f.geo.shape), []).append(k)
+        if cache is not None and id(f) in cache:
+            bb[k] = cache[id(f)]
+        else:
+            by_shape.setdefault(tuple(f.geo.shape), []).append(k)
     for idxs in by_shape.values():
         bb[np.asarray(idxs)] = geo_bbox(torch.stack([frames[k].geo for k in idxs])).cpu().numpy()
+        if cache is not None:
+            for k in idxs:
+                cache[id(frames[k])] = bb[k]
     out = []
     for i in range(len(frames)):
         for j in range(i + 1, len(frames)):
@@ -136,33 +145,39 @@ def _pad_feats_common(feats):
     """Pad every frame's features to the survey-max keypoint capacity with
     ``valid=False`` rows, so mixed-capacity surveys take the stacked path."""
     cap = max(int(f.xy.shape[0]) for f in feats)
-
-    def pad(f):
-        extra = cap - int(f.xy.shape[0])
-        if extra == 0:
-            return f
-        return type(f)(*[torch.cat([a, torch.zeros((extra,) + a.shape[1:], dtype=a.dtype, device=a.device)])
-                         for a in f])
-
-    return [pad(f) for f in feats]
+    return [pad_rows_tree(f, cap) for f in feats]
 
 
 def _count(counters, key, n):
     counters[key] = counters.get(key, 0) + n
 
 
-def _match_pairs_dense(frames, feats, geo_list, pair_ids, cfg: PipelineConfig, matcher_cfg, counters):
-    """Dense world-correlation matching (matching/dense.py): every frame
-    rasterized once at the survey-common shape, all pairs correlated in one
-    batch (features padded to a common capacity first)."""
-    from .matching.dense import dense_matching_stacked
+def _match_pairs_dense(frames, feats, geo_list, pair_ids, cfg: PipelineConfig, matcher_cfg, counters,
+                       stacked: bool = True):
+    """Dense world-correlation matching (matching/dense.py).  Stacked: every
+    frame rasterized once at the survey-common shape, all pairs correlated
+    in one batch (features padded to a common capacity first).  Per pair
+    (the online stream): each frame in a pair rasterized once at its own
+    fitted shape, one correlation per pair."""
+    from .matching.dense import dense_matching, dense_matching_stacked, world_raster
 
     corres_rows: Dict[int, list] = {i: [] for i in range(len(frames))}
     if not pair_ids:
         return corres_rows
-    results = dense_matching_stacked(pair_ids, [f.img_id for f in frames], _pad_feats_common(feats),
-                                     [f.norm for f in frames], geo_list, cfg.detector, matcher_cfg.dense)
-    _count(counters, "match_stacked_pairs", len(pair_ids))
+    if stacked:
+        results = dense_matching_stacked(pair_ids, [f.img_id for f in frames], feats, [f.norm for f in frames],
+                                         geo_list, cfg.detector, matcher_cfg.dense)
+        _count(counters, "match_stacked_pairs", len(pair_ids))
+    else:
+        res = cfg.detector.geopatch_res
+        rasters = {k: world_raster(frames[k].norm, geo_list[k], res) for k in sorted({k for p in pair_ids for k in p})}
+        results = {
+            (i, j): dense_matching(frames[i].img_id, frames[j].img_id, feats[i], frames[i].norm, geo_list[i],
+                                   frames[j].norm, geo_list[j], cfg.detector, matcher_cfg.dense,
+                                   raster_s=rasters[i], raster_t=rasters[j])
+            for (i, j) in pair_ids
+        }
+        _count(counters, "match_perpair_pairs", len(pair_ids))
     for (i, j), (rows_s, rows_t, n) in results.items():
         if n:
             corres_rows[i].append((frames[j].img_id, rows_s))
@@ -170,21 +185,36 @@ def _match_pairs_dense(frames, feats, geo_list, pair_ids, cfg: PipelineConfig, m
     return corres_rows
 
 
-def _match_pairs(frames, feats, geo_list, pair_ids, cfg: PipelineConfig, matcher_cfg, rng, counters):
-    """Detected-correspondence matching over all gated pairs (geo gating
+def _match_pairs(frames, feats, geo_list, pair_ids, cfg: PipelineConfig, matcher_cfg, rng, counters,
+                 stacked: bool = True):
+    """Detected-correspondence matching over the gated pairs (geo gating
     against ``geo_list``: DR geo, or drift-compensated geo on re-match
-    rounds).  Dense mode goes to :func:`_match_pairs_dense`; the keypoint
-    matcher takes every pair in one batch (features padded to a common
-    capacity first), or the per-pair path for a single pair.  The path taken
+    rounds).  Dense mode goes to :func:`_match_pairs_dense`.
+
+    ``stacked=True`` (batch pipeline): features padded to a common capacity,
+    geo-patch descriptors attached to every frame in one batch, and every
+    pair in one batch when there are several (one pair takes the per-pair
+    matcher).  ``stacked=False`` (online stream): geo patches attached frame
+    by frame to the frames in a pair, and one pair at a time.  The path taken
     is counted in ``counters['match_stacked_pairs' / 'match_perpair_pairs']``."""
+    from .features import attach_geo_patch_descriptors, attach_geo_patch_descriptors_batch
     from .matching.robust import robust_matching, robust_matching_stacked
 
+    if stacked:
+        feats = _pad_feats_common(feats)
     if matcher_cfg.mode == "dense":
-        return _match_pairs_dense(frames, feats, geo_list, pair_ids, cfg, matcher_cfg, counters)
+        return _match_pairs_dense(frames, feats, geo_list, pair_ids, cfg, matcher_cfg, counters, stacked)
+    if cfg.detector.descriptor == "geo_patch":
+        if stacked:
+            feats = attach_geo_patch_descriptors_batch(feats, [f.norm for f in frames], geo_list, cfg.detector)
+        else:
+            involved = {k for p in pair_ids for k in p}
+            feats = [attach_geo_patch_descriptors(f, frames[k].norm, geo_list[k], cfg.detector) if k in involved
+                     else f for k, f in enumerate(feats)]
     corres_rows: Dict[int, list] = {i: [] for i in range(len(frames))}
-    if len(pair_ids) > 1:
+    if stacked and len(pair_ids) > 1:
         results = robust_matching_stacked(
-            pair_ids, [f.img_id for f in frames], _pad_feats_common(feats), geo_list,
+            pair_ids, [f.img_id for f in frames], feats, geo_list,
             [int(f.raw.shape[0]) for f in frames], rng, cfg=matcher_cfg,
         )
         _count(counters, "match_stacked_pairs", len(pair_ids))

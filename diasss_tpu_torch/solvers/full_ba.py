@@ -62,6 +62,7 @@ class BAInfo(NamedTuple):
     stall: int  # consecutive no-improvement trials at exit
     cg_iters_total: int  # CG iterations over all trials (0 for the direct step)
     solver_kind: str
+    lam: Optional[torch.Tensor] = None  # () final LM damping (the resume state, with ``stall``)
 
 
 def resolve_ba_solver_kind(preconditioner: str, P: int, K_pad: int) -> str:
@@ -396,14 +397,18 @@ def _trial(poses, lms, err, lam, prob: BAProblem, sig_s, sig_t, cfg: FullBAConfi
                          prob, kp_cfg, cfg, P) + (cg_k,)
 
 
-def solve_full_ba(prob: BAProblem, cfg: FullBAConfig, kp_cfg, k_direct_cols: int | None = None):
+def solve_full_ba(prob: BAProblem, cfg: FullBAConfig, kp_cfg, lam0=None, stall0=None,
+                  k_direct_cols: int | None = None):
     """LM with per-trial Schur-eliminated solves; returns (poses, landmarks,
     BAInfo).  A Python loop of trials: the accept/reject and damping update
     stay on the device; the stall flag (two consecutive trials improving the
     error by < 1e-6 relative end the solve) costs one host read per trial,
     and a PCG step one per ``pose_graph.CG_CHUNK`` CG iterations.
-    ``k_direct_cols``: leading factor slots that carry Woodbury columns in
-    the direct step (the padding tail is invalid); None = all K slots."""
+    ``lam0`` / ``stall0`` resume the damping (else 1e-4) and the stall
+    counter (else 0) of a checkpoint (:mod:`..checkpoint`); ``BAInfo.lam``
+    is the damping at exit.  ``k_direct_cols``: leading factor slots that
+    carry Woodbury columns in the direct step (the padding tail is
+    invalid); None = all K slots."""
     P = prob.poses0.t.shape[0]
     dtype, dev = prob.poses0.t.dtype, prob.poses0.t.device
     kind = resolve_ba_solver_kind(cfg.preconditioner, P, int(prob.kp_i.shape[0]))
@@ -411,8 +416,9 @@ def solve_full_ba(prob: BAProblem, cfg: FullBAConfig, kp_cfg, k_direct_cols: int
     sig_t = kp_noise_sigmas(prob.kp_sr_t, kp_cfg.sigma_r, kp_cfg.alpha_bw_deg)
     err0 = _ba_error(prob.poses0, prob.lm0, prob, kp_cfg, cfg.huber_delta)
     poses, lms, err = prob.poses0, prob.lm0, err0
-    lam = torch.tensor(1e-4, dtype=dtype, device=dev)
-    k = stall = cg_total = 0
+    lam = torch.tensor(1e-4 if lam0 is None else float(lam0), dtype=dtype, device=dev)
+    stall = 0 if stall0 is None else int(stall0)
+    k = cg_total = 0
     while k < cfg.max_iters and stall < 2:
         poses, lms, err2, lam, cg_k = _trial(poses, lms, err, lam, prob, sig_s, sig_t, cfg, kp_cfg, kind,
                                              k_direct_cols)
@@ -422,7 +428,7 @@ def solve_full_ba(prob: BAProblem, cfg: FullBAConfig, kp_cfg, k_direct_cols: int
         cg_total += cg_k
         stall = 0 if improved else stall + 1
     return poses, lms, BAInfo(error0=err0, error=err, iterations=k, stall=stall, cg_iters_total=cg_total,
-                              solver_kind=kind)
+                              solver_kind=kind, lam=lam)
 
 
 def ba_pose_marginals(prob: BAProblem, poses: se3.Pose3, lms: torch.Tensor, cfg: FullBAConfig, kp_cfg,

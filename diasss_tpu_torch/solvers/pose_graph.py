@@ -20,7 +20,7 @@ not-to-port list and raises.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -58,6 +58,7 @@ class SolveInfo(NamedTuple):
     stall: int  # consecutive trials without relative improvement at exit
     cg_iters_total: int = 0  # CG iterations over all trials (0 for the direct step)
     solver_kind: str = "direct"  # the resolved linear solve
+    lam: Optional[torch.Tensor] = None  # () final LM damping (the resume state, with ``stall``)
 
 
 def resolve_pg_solver_kind(preconditioner: str, P: int, L_lc: int) -> str:
@@ -321,14 +322,16 @@ def _pcg_lm_step(kind: str, idx_i, idx_j, Ji, Jj, g, D, lam, P: int, cfg: PoseGr
     return _pcg(matvec, -g, precond, cfg.cg_tol, cfg.cg_max_iters)
 
 
-def solve_pose_graph(graph: PoseGraph, cfg: PoseGraphConfig = PoseGraphConfig()):
+def solve_pose_graph(graph: PoseGraph, cfg: PoseGraphConfig = PoseGraphConfig(), lam0=None, stall0=None):
     """Batched LM on the full pose graph; returns (poses, SolveInfo).
 
     One Python iteration per LM trial (damping *0.3 on accept, *10 on
     reject): the accept/reject and damping update stay on the device; the
     stall counter (two consecutive trials improving the error by < 1e-6
     relative end the solve) costs one host read per trial, and a PCG step
-    one per :data:`CG_CHUNK` CG iterations."""
+    one per :data:`CG_CHUNK` CG iterations.  ``lam0`` / ``stall0`` resume
+    the damping (else 1e-4) and the stall counter (else 0) of a checkpoint
+    (:mod:`..checkpoint`); ``SolveInfo.lam`` is the damping at exit."""
     P = graph.poses0.t.shape[0]
     L_lc = graph.lc_i.shape[0]
     kind = resolve_pg_solver_kind(cfg.preconditioner, P, L_lc)
@@ -344,8 +347,9 @@ def solve_pose_graph(graph: PoseGraph, cfg: PoseGraphConfig = PoseGraphConfig())
     poses = graph.poses0
     err0 = graph_error(poses, graph)
     err = err0
-    lam = torch.tensor(1e-4, dtype=dtype, device=dev)
-    k = stall = cg_total = 0
+    lam = torch.tensor(1e-4 if lam0 is None else float(lam0), dtype=dtype, device=dev)
+    stall = 0 if stall0 is None else int(stall0)
+    k = cg_total = 0
     while k < cfg.max_gn_iters and stall < 2:
         idx_i, idx_j, r, Ji, Jj = _build_normal_terms(poses, graph)
         g, D = _gradient_and_diag(idx_i, idx_j, r, Ji, Jj, P)
@@ -365,7 +369,7 @@ def solve_pose_graph(graph: PoseGraph, cfg: PoseGraphConfig = PoseGraphConfig())
         k += 1
         stall = 0 if bool(improved) else stall + 1
     return poses, SolveInfo(error0=err0, error=err, iterations=k, stall=stall, cg_iters_total=cg_total,
-                            solver_kind=kind)
+                            solver_kind=kind, lam=lam)
 
 
 def pg_pose_marginals(graph: PoseGraph, poses: se3.Pose3) -> torch.Tensor:

@@ -137,3 +137,19 @@ def test_write_png_bytes_identical(tmp_path, shape):
     viz.write_png(str(tmp_path / "port.png"), rgb)
     jviz.write_png(str(tmp_path / "jax.png"), rgb)
     assert (tmp_path / "port.png").read_bytes() == (tmp_path / "jax.png").read_bytes()
+
+
+def test_prefetch_iter_copy_behaves_as_the_original():
+    from diasss_tpu.parallel.prefetch import prefetch_iter as jax_prefetch_iter
+    from diasss_tpu_torch.parallel.prefetch import prefetch_iter
+
+    thunks = [lambda k=k: np.full(3, k * k) for k in range(7)]
+    ours, ref = list(prefetch_iter(thunks, depth=2)), list(jax_prefetch_iter(thunks, depth=2))
+    assert [a.tolist() for a in ours] == [b.tolist() for b in ref] == [[k * k] * 3 for k in range(7)]
+
+    def broken():
+        raise ValueError("unreadable line")
+
+    for fn in (prefetch_iter, jax_prefetch_iter):
+        with pytest.raises(ValueError, match="unreadable line"):
+            list(fn([thunks[0], broken, thunks[1]]))

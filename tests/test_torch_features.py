@@ -17,6 +17,8 @@ Tolerances and why:
 * SIFT descriptors (scale 512): 1e-3 on identical inputs and at level 0.
 """
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -137,8 +139,16 @@ def test_all_levels_mostly_identical(detections):
 
 
 def test_stacked_layout_and_other_descriptors_raise():
+    """The stacked layout raises (not-to-port list); the orb descriptor
+    gives +-1 bits at the SIFT path's keypoints."""
     img = torch.zeros(64, 64)
     with pytest.raises(NotImplementedError, match="not-to-port"):
         detector.detect_features(img, stacked=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        detector.detect_features(img, cfg=port_cfg(DetectorConfig(descriptor="orb")))
+    rng = np.random.default_rng(6)
+    img = torch.as_tensor(rng.uniform(0, 255, (96, 128)).astype(np.float32))
+    cfg = DetectorConfig(descriptor="orb", n_features=150)
+    orb = detector.detect_features(img, cfg=port_cfg(cfg))
+    sift = detector.detect_features(img, cfg=port_cfg(dataclasses.replace(cfg, descriptor="sift")))
+    assert orb.desc.shape == (150, 256) and set(torch.unique(orb.desc).tolist()) == {-1.0, 1.0}
+    assert int(orb.valid.sum()) > 50
+    torch.testing.assert_close(orb.xy, sift.xy, rtol=0, atol=0)

@@ -130,10 +130,38 @@ def test_robust_matching_per_pair_identical_rows(detected):
 
 @pytest.mark.parametrize("metric", ["hamming", "ncc"])
 def test_other_metrics_raise_naming_roadmap(metric):
-    cfg = MatcherConfig(desc_metric=metric)
-    args = [_T(a) for a in _nn_inputs(3, 16, 16)]
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        geosearch.nn_core(*args, 1.0, port_cfg(cfg))
+    """The hamming (ORB) and ncc (geo patch) metrics give the JAX
+    package's matches: Hamming distances of +-1 bits under both parity
+    bounds (with the ORB rule that a real second-best must exist), and
+    1 - NCC of unit mean-free descriptors (dot products summed in another
+    order: 1e-6)."""
+    gq, dq, vq, gr, dr, vr, bbox = _nn_inputs(3)
+    rng = np.random.default_rng(4)
+    if metric == "hamming":
+        flip = rng.uniform(size=dr.shape) < 0.15
+        dq = np.where(rng.uniform(size=dq.shape) < 0.5, 1.0, -1.0).astype(np.float32)
+        dr = np.where(flip, -dq[: len(dr)], dq[: len(dr)]).astype(np.float32)
+        dr[10] = dr[11]  # a tie
+        cfg = MatcherConfig(desc_metric=metric, ratio_test=0.9)
+        cases = [(False, cfg.orb_dist_bound), (True, cfg.orb_dist_bound_cross)]
+    else:
+        dq = dq - dq.mean(1, keepdims=True)
+        dq /= np.linalg.norm(dq, axis=1, keepdims=True)
+        dr = dr - dr.mean(1, keepdims=True)
+        dr /= np.linalg.norm(dr, axis=1, keepdims=True)
+        cfg = MatcherConfig(desc_metric=metric, ncc_ratio=0.9)
+        cases = [(False, 1.0 - cfg.ncc_min)]
+    args = (gq, dq, vq, gr, dr, vr, bbox)
+    for flip_parity, bound in cases:
+        ref = jgeo.nn_core(*[jnp.asarray(a) for a in args], jnp.asarray(np.float32(bound)), cfg)
+        ours = geosearch.nn_core(*[_T(a) for a in args], bound, port_cfg(cfg))
+        assert (np.asarray(ref.corres) >= 0).sum() > 5
+        np.testing.assert_array_equal(ours.corres.numpy(), np.asarray(ref.corres))
+        np.testing.assert_array_equal(ours.n_candidates.numpy(), np.asarray(ref.n_candidates))
+        np.testing.assert_allclose(ours.best_dist.numpy(), np.asarray(ref.best_dist), rtol=1e-6, atol=1e-6)
+        single = geosearch.geo_nn_search(*[_T(a) for a in args], port_cfg(cfg), parity_flip=flip_parity)
+        ref_single = jgeo.geo_nn_search(*[jnp.asarray(a) for a in args], cfg, flip_parity)
+        np.testing.assert_array_equal(single.corres.numpy(), np.asarray(ref_single.corres))
 
 
 def test_public_constructors_default_to_the_card():

@@ -1,6 +1,7 @@
 """The port imports neither JAX nor the JAX package (on the annotation,
-detected and automatic paths with the pose marginals and the mosaic), and
-the chip smoke test has no CPU path.
+detected and automatic paths with the pose marginals and the mosaic, one
+online arrival, a checkpointed solve and the diagnostics), and the chip
+smoke test has no CPU path.
 
 Both run in fresh interpreters: this test process has imported jax already
 (tests/conftest.py).
@@ -43,6 +44,22 @@ for cfg in (PipelineConfig(pose_graph=PoseGraphConfig(marginals=True)),
     marginals = cfg.full_ba.marginals if cfg.estimator == "full_ba" else cfg.pose_graph.marginals
     assert (result.pose_sigmas is not None) == marginals
 mosaic = build_mosaic(frames, geo_list=_estimated_geo(frames, result.poses))[0]
+
+import os, tempfile
+from diasss_tpu_torch.checkpoint import solve_full_ba_checkpointed
+from diasss_tpu_torch.diagnostics import check_finite, determinism_report
+from diasss_tpu_torch.online import OnlineSlam
+from diasss_tpu_torch.pipeline import _assemble_pairs, _overlap_pairs
+from diasss_tpu_torch.solvers import full_ba
+
+slam = OnlineSlam(PipelineConfig(), window_frames=2, device="cpu")
+assert check_finite(slam.add_frame(frames[0]), "online") == []
+pairs = _overlap_pairs(frames, 0.1)
+prob = full_ba.build_ba_problem(frames, _assemble_pairs(frames, None, pairs, auto, True)[0], pairs, auto.full_ba,
+                                auto.pose_graph)
+with tempfile.TemporaryDirectory() as tmp:
+    poses, _, info = solve_full_ba_checkpointed(prob, auto.full_ba, auto.kp_noise, os.path.join(tmp, "ck.npz"), chunk=2)
+assert determinism_report(lambda: full_ba.solve_full_ba(prob, auto.full_ba, auto.kp_noise)[0])["deterministic"]
 leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
 print("JAX_MODULES", leaked)
 pkg = sorted(m for m in sys.modules if m == "diasss_tpu" or m.startswith("diasss_tpu."))

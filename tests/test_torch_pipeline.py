@@ -107,17 +107,25 @@ def test_detected_run_through_port_detector(detected_runs):
     (PipelineConfig(pose_graph=PoseGraphConfig(marginals=True)), "A9"),
     (PipelineConfig(estimator="full_ba", full_ba=FullBAConfig(preconditioner="dense_seg", tridiag_segment=32,
                                                               max_iters=6)), "A7"),
-    (PipelineConfig(detector=DetectorConfig(descriptor="geo_patch"), pose_graph=PoseGraphConfig(use_anno=False)),
-     "A11"),
+    (PipelineConfig(detector=DetectorConfig(descriptor="geo_patch", n_features=300),
+                    matcher=MatcherConfig(desc_metric="ncc", cross_check=True, scc_mode="xy"),
+                    pose_graph=PoseGraphConfig(use_anno=False, preconditioner="direct")), "A11"),
 ])
 def test_unported_options_raise_naming_roadmap(frames, cfg, item):
     """Options still unported raise, naming their ROADMAP item; those ported
-    since (A9: the pose marginals, A7: the PCG family) run."""
+    since (A9: the pose marginals, A7: the PCG family, A11: geo-patch
+    descriptors attached for the keypoint matcher) run."""
     if item in ("A7", "A9"):
         result = run_slam(frames[1], port_cfg(cfg), rng=JaxRng())
         assert torch.isfinite(result.poses.t).all()
         assert result.counters == {f"solver_{'dense_seg' if item == 'A7' else 'direct'}_solves": 1}
         assert (result.pose_sigmas is not None) == (item == "A9")
+        return
+    if item == "A11":
+        result = run_slam(frames[1], port_cfg(cfg), rng=JaxRng(), run_eval2=False)
+        assert torch.isfinite(result.poses.t).all()
+        assert result.counters == {"match_stacked_pairs": len(result.pair_ids), "solver_direct_solves": 1}
+        assert sum(int(r.valid.sum()) for r in result.lc_results.values()) > 0
         return
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         run_slam(frames[1], port_cfg(cfg))
@@ -151,20 +159,36 @@ def test_cli_runs_and_writes_metrics(survey_dirs, tmp_path):
 
 @pytest.mark.parametrize("flags, item", [
     (["--metrics", "m.json"], "A9"),
-    (["--online"], "A13"),
+    (["--online", "--window", "2", "--out", "online", "--metrics", "m.json"], "A13"),
     (["--mesh", "2"], "A14"),
     (["--detected", "--descriptor", "orb"], "A11"),
 ])
 def test_cli_rejects_unported_flags(survey_dirs, capsys, flags, item, tmp_path, monkeypatch):
-    """Flags still unported exit naming their ROADMAP item; ``--metrics``
-    without ``--no-marginals`` (A9, ported since) reports the marginals."""
+    """Flags still unported exit naming their ROADMAP item; those ported
+    since run: ``--metrics`` without ``--no-marginals`` (A9) reports the
+    marginals, ``--online --window`` (A13) streams the lines (one line per
+    arrival, the ATE, the per-line estimates; no marginals, no metrics
+    file), ``--detected --descriptor orb`` (A11) matches ORB bits."""
     from diasss_tpu_torch.cli import main
 
+    monkeypatch.chdir(tmp_path)
     if item == "A9":
-        monkeypatch.chdir(tmp_path)
         assert main(survey_dirs + flags) == 0
         m = json.loads((tmp_path / "m.json").read_text())
         assert len(m["pose_sigma_mean"]) == 6 and m["pose_sigma_max_xy"] > 0
+        return
+    if item == "A13":
+        assert main(survey_dirs + flags) == 0
+        out = capsys.readouterr().out
+        assert "frame 0 (0): estimate over 120 pings" in out and "frame 1 (1): estimate over 240 pings" in out
+        assert "ATE DR/EST:" in out
+        assert sorted(p.name for p in (tmp_path / "online").iterdir()) == \
+            ["online_est_poses_0.txt", "online_est_poses_1.txt"]
+        assert not (tmp_path / "m.json").exists()
+        return
+    if item == "A11":
+        assert main(survey_dirs + flags + ["--no-eval2"]) == 0
+        assert "ATE DR/EST:" in capsys.readouterr().out
         return
     with pytest.raises(SystemExit) as exc:
         main(survey_dirs + flags)
