@@ -68,11 +68,29 @@ Phases (every one asserts; nothing is caught):
     ``solve_full_ba_checkpointed`` in chunks of 5 trials, and again resumed
     from the snapshot of its first chunk, both within 1e-3 m ATE of the
     one-shot solve, the resumed run paying only the remaining trials; the
-    ``determinism_report`` of two one-shot solves (printed: segment sums by
-    ``index_add_`` add with atomics on the card);
+    ``determinism_report`` of two one-shot solves;
 12. the orb and geo_patch descriptor families on the detected 3000-pose
     survey with the CLI's settings: warm-up, then a counted pass (one B1
-    launch per frame, matches per pair, ``ate_est <= ate_dr + 1e-2``).
+    launch per frame, matches per pair, ``ate_est <= ate_dr + 1e-2``);
+13. surveys whose lines differ in bin count (lines cropped on both sides,
+    :func:`crop_lines`): the automatic survey with line 1 at 384 of 512
+    bins (warm-up, then a counted, timed pass: one B1 launch per frame at
+    both widths, one B2 launch per match round, B1 bit-identical and B2
+    within 2e-5 of their plain versions at these shapes, ATE below DR), the
+    same survey streamed arrival by arrival, the 3000-pose annotation survey
+    with lines 1 and 3 at 448 and 384 bins (two-stage) and the 4200-pose
+    full-BA survey with line 1 at 384 bins;
+14. the CLI in a subprocess on that mixed 3000-pose survey written to a
+    temporary directory (``--device cuda --trace DIR --metrics FILE``):
+    the native reader ran, the trace holds CUDA kernel events, and the
+    metrics file's ATE is within 1e-3 m of an in-process run on the same
+    files.
+
+The repairs of this round are gated here too: the 12000-pose two-stage
+solve is not capped (its float64 direct step), two automatic passes give
+the same ATE bit for bit, two one-shot 4200-pose full-BA solves are
+identical (``determinism_report``) and the checkpoint's resumed run takes
+the one-shot run's trials (the deterministic segment sums).
 
 Before the last line it prints the ``kernels`` JSON line (launches from the
 online automatic stream, per phase beside; times, device times and bounds
@@ -112,11 +130,47 @@ MAX_LC_MARGINALS = 1024  # loop-closure factors of the marginals envelope: the d
 PCG_ATE_GATE = {"two_stage": ("abs", 1e-2), "full_ba": ("rel", 0.05)}  # a PCG pass against the direct pass
 ONLINE_WINDOWS = {"two_stage": 4, "full_ba": 3}  # fixed-lag windows (lines) of the streamed 12k and 4.2k surveys
 CKPT_CHUNK = 5  # LM trials per checkpointed chunk
+# lines cropped on both sides (bins of line k lost per side): the automatic
+# survey's line 1 at 384 of 512 bins, the 3000-pose survey's lines 1 and 3 at
+# 448 and 384, the 4200-pose full-BA survey's line 1 at 384
+MIXED_AUTO_CROPS = {1: 64}
+MIXED_ANNO_CROPS = {1: 32, 3: 64}
+MIXED_BA_CROPS = {1: 64}
+CLI_ATE_TOL = 1e-3  # the CLI's metrics against an in-process run on the same files
 
 
 def check(ok: bool, msg: str) -> None:
     if not ok:
         raise AssertionError(msg)
+
+
+def crop_lines(survey, crops):
+    """The survey with ``crops[k]`` outermost bins cut from both sides of
+    line ``k``: lines that differ in bin count, as lines logged at different
+    range settings give.  The ground-range table (indexed by ``|col - n_bins
+    // 2|``) keeps its first ``n_bins // 2 - c`` entries; annotation rows
+    ``(l_self, l_other, p_self, b_self, p_other, b_other, depth)`` lose ``c``
+    from the bin of a cropped line, and rows outside a cropped line go.
+    (The parity tests' copy is ``tests/torch_parity_helpers.crop_lines``.)"""
+    width = {l.img_id: l.image.shape[1] - 2 * crops.get(l.img_id, 0) for l in survey.lines}
+
+    def cut(a):
+        a = a.copy()
+        for c_line, c_bin in ((0, 3), (1, 5)):
+            a[:, c_bin] -= np.asarray([crops.get(int(i), 0) for i in a[:, c_line]], a.dtype)
+        inside = np.ones(len(a), bool)
+        for c_line, c_bin in ((0, 3), (1, 5)):
+            w = np.asarray([width[int(i)] for i in a[:, c_line]], np.int64)
+            inside &= (a[:, c_bin] >= 0) & (a[:, c_bin] < w)
+        return a[inside]
+
+    lines = []
+    for l in survey.lines:
+        c = crops.get(l.img_id, 0)
+        n = l.image.shape[1]
+        lines.append(dataclasses.replace(l, image=l.image[:, c:n - c], ground_ranges=l.ground_ranges[:n // 2 - c],
+                                         annos=cut(l.annos)))
+    return dataclasses.replace(survey, lines=lines)
 
 
 def card_line() -> str:
@@ -425,7 +479,9 @@ def auto_run(frames, cfg, gt, record=None, record_correlate=None):
         dense.qcorr, dense._correlate = qcorr_entry, correlate_entry
 
 
-def auto_phase(dev, survey, cfg, gt, card):
+def auto_phase(dev, survey, cfg, gt, card, warm_ate):
+    """The timed automatic pass; its ATE must equal the warm-up pass's
+    ``warm_ate`` bit for bit (deterministic sums on the card)."""
     from diasss_tpu_torch.features import fast_cuda
     from diasss_tpu_torch.matching import dense_cuda
 
@@ -445,6 +501,8 @@ def auto_phase(dev, survey, cfg, gt, card):
           f"FAST kernel launched {fast_n} times, expected one per frame: {len(result.frame_slices)}")
     check_poses(result, "automatic")
     check(result.ate_est < result.ate_dr, f"automatic: no improvement ({result.ate_est} >= {result.ate_dr})")
+    print(f"[auto] ATE of the warm-up pass {warm_ate!r}, of the timed pass {result.ate_est!r} m (must be equal)")
+    check(result.ate_est == warm_ate, f"automatic: two passes gave the ATE {warm_ate!r} and {result.ate_est!r}")
     check(result.counters.get("solver_direct_solves", 0) >= 1 and
           not any(k.startswith("solver_") and k != "solver_direct_solves" for k in result.counters),
           f"automatic: solver counters {result.counters}")
@@ -542,10 +600,12 @@ def sigma_summary(result, label) -> str:
             f"{' '.join(f'{v:.4g}' for v in mean)}, largest xy sigma {max_xy:.4g} m")
 
 
-def timed_pass(frames, cfg, gt, label, card):
+def timed_pass(frames, cfg, gt, label, card, improve=True):
     """One timed ``run_slam`` pass on keyframes already on the card, with
     the peak device memory and every global solve's info; returns
-    (result, wall, peak bytes, infos)."""
+    (result, wall, peak bytes, infos).  The estimate must beat dead
+    reckoning, or with ``improve=False`` not fall behind it by more than
+    1e-2 m (a survey whose gated pairs accept no loop closure)."""
     from diasss_tpu_torch.pipeline import run_slam
 
     torch.cuda.synchronize()
@@ -558,8 +618,12 @@ def timed_pass(frames, cfg, gt, label, card):
     peak = torch.cuda.max_memory_allocated()
     pings = int(result.poses.t.shape[0])
     check_poses(result, f"{label} {pings}")
-    check(result.ate_est < result.ate_dr,
-          f"{label} {pings}: no improvement over dead reckoning ({result.ate_est} >= {result.ate_dr})")
+    if improve:
+        check(result.ate_est < result.ate_dr,
+              f"{label} {pings}: no improvement over dead reckoning ({result.ate_est} >= {result.ate_dr})")
+    else:
+        check(result.ate_est <= result.ate_dr + 1e-2,
+              f"{label} {pings}: regressed below dead reckoning ({result.ate_est} > {result.ate_dr} + 1e-2)")
     solve_s = result.timings.get("pose_graph", 0.0) + result.timings.get("full_ba", 0.0)
     print(f"[{label} {pings}] pairs {len(result.pair_ids)}, n_lc_accepted {result.n_lc_accepted}, "
           f"ATE DR/EST {result.ate_dr:.4f}/{result.ate_est:.4f} m, wall {wall:.3f} s, "
@@ -573,19 +637,23 @@ def timed_pass(frames, cfg, gt, label, card):
     return result, wall, peak, infos
 
 
-def annotation_phase(dev, card, survey_kw, cfg, label, profile=False, variants=()):
+def annotation_phase(dev, card, survey_kw, cfg, label, profile=False, variants=(), crops=None, improve=True):
     """An annotation cell: warm-up, the timed pass (profiled once more if
     ``profile``), then one pass of each ``(label, cfg)`` variant on the same
     survey.  A variant with another preconditioner is a PCG pass, gated
-    against the timed pass's ATE."""
+    against the timed pass's ATE.  ``crops``: lines cut to fewer bins
+    (:func:`crop_lines`); ``improve``: the timed pass's gate
+    (:func:`timed_pass`)."""
     from diasss_tpu_torch.pipeline import run_slam
     from diasss_tpu_torch.synthetic import make_survey
 
     survey = make_survey(**survey_kw)
+    if crops:
+        survey = crop_lines(survey, crops)
     gt = [l.gt_poses for l in survey.lines]
     run_slam(build_frames(survey, dev), cfg, gt_rows_list=gt, run_eval2=False)  # warm-up
     frames = build_frames(survey, dev)
-    result, wall, _, _ = timed_pass(frames, cfg, gt, label, card)
+    result, wall, _, _ = timed_pass(frames, cfg, gt, label, card, improve)
     if profile:
         frames = build_frames(survey, dev)
         profiled(f"{label} {int(result.poses.t.shape[0])}",
@@ -846,8 +914,13 @@ def checkpoint_phase(dev, card):
           f"checkpoint: ATE one-shot {ate_ref}, chunked {ate_chunked}, resumed {ate_resumed}")
     check(all(n > first for n in trials) and resumed_total <= cfg.full_ba.max_iters,
           f"checkpoint: the resumed run's snapshots hold {trials} trials after a first snapshot of {first}")
+    check(chunked_trials == ref_info.iterations and resumed_total == ref_info.iterations,
+          f"checkpoint: chunked {chunked_trials} and resumed {resumed_total} trials against the one-shot's "
+          f"{ref_info.iterations}")
     report = determinism_report(lambda: solve()[0])
     print(f"[checkpoint] determinism_report of two one-shot full-BA solves on {card}: {report}")
+    check(report["deterministic"] and report["max_abs_dev"] == 0.0,
+          f"checkpoint: two one-shot full-BA solves differ: {report}")
 
 
 def descriptor_phase(dev, card, descriptor):
@@ -882,6 +955,132 @@ def descriptor_phase(dev, card, descriptor):
     return launches
 
 
+def mixed_auto_phase(dev, card, survey, cfg, gt):
+    """The automatic profile on a survey whose lines differ in bin count:
+    warm-up (recording B2's inputs), then a counted, timed pass; B1 and B2
+    held to their plain versions at this survey's shapes.  Returns (B1
+    launches, B2 launches, B1 error, B2 error)."""
+    from diasss_tpu_torch.features import fast_cuda
+    from diasss_tpu_torch.features.fast import fast_two_threshold_plain
+    from diasss_tpu_torch.features.pyramid import build_pyramid
+    from diasss_tpu_torch.matching import dense_cuda
+    from diasss_tpu_torch.matching.dense import qcorr_plain
+
+    recorded = []
+    warm = auto_run(build_frames(survey, dev), cfg, gt, record=recorded, record_correlate=[])
+    frames = build_frames(survey, dev)
+    widths = sorted({int(f.raw.shape[1]) for f in frames})
+    check(len(widths) == 2, f"mixed auto: frame widths {widths}")
+    torch.cuda.synchronize()
+    fast_cuda.launches = dense_cuda.launches = 0
+    t0 = time.perf_counter()
+    result = auto_run(frames, cfg, gt)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fast_n, qcorr_n = fast_cuda.launches, dense_cuda.launches
+    rounds = result.counters["match_stacked_pairs"] // len(result.pair_ids)
+    check(fast_n == len(frames), f"mixed auto: FAST kernel launched {fast_n} times for {len(frames)} frames")
+    check(qcorr_n == rounds > 0, f"mixed auto: q-correlation kernel launched {qcorr_n} times for {rounds} rounds")
+    check_poses(result, "mixed auto")
+    check(result.ate_est < result.ate_dr, f"mixed auto: no improvement ({result.ate_est} >= {result.ate_dr})")
+    check(result.ate_est == warm.ate_est, f"mixed auto: two passes gave the ATE {warm.ate_est!r} and {result.ate_est!r}")
+
+    dcfg = cfg.detector
+    b1_err = 0.0
+    for w in widths:
+        f = next(f for f in frames if int(f.raw.shape[1]) == w)
+        levels = [l.contiguous() for l in build_pyramid(f.norm.float(), dcfg.n_levels, dcfg.scale_factor)]
+        ini_t, min_t = float(dcfg.ini_fast_threshold), float(dcfg.min_fast_threshold)
+        out = fast_cuda.fast9_two_threshold(levels, ini_t, min_t)
+        ref = fast_two_threshold_plain(levels, ini_t, min_t)
+        for lvl, ((hi, lo), (hi0, lo0)) in enumerate(zip(out, ref)):
+            e = max(float((hi - hi0).abs().max()), float((lo - lo0).abs().max()))
+            check(e == 0.0 and torch.equal(hi, hi0) and torch.equal(lo, lo0),
+                  f"mixed auto: FAST-9 kernel differs from the plain version at width {w} level {lvl}: {e}")
+            b1_err = max(b1_err, e)
+    b2_err = 0.0
+    for Wvh, Wh, q, k, T in recorded:
+        A, B = dense_cuda.qcorr_cuda(Wvh, Wh, q, k, T)
+        A0, B0 = qcorr_plain(Wvh, Wh, q, k, T)
+        b2_err = max(b2_err, float((A - A0).abs().max()), float((B - B0).abs().max()))
+    check(b2_err <= QCORR_TOL, f"mixed auto: q-correlation kernel differs from the plain version: {b2_err}")
+    print(f"[mixed auto] widths {widths}, {int(result.poses.t.shape[0])} poses, pairs {result.pair_ids}, match rounds "
+          f"{rounds}, correspondences {result.n_lc_accepted}, ATE DR/EST {result.ate_dr:.4f}/{result.ate_est:.4f} m, "
+          f"wall {wall:.3f} s, FAST launches {fast_n}, q-correlation launches {qcorr_n}; B1 max abs error {b1_err} "
+          f"(pyramids at widths {widths}), B2 max abs error {b2_err:.3g} on {len(recorded)} recorded rounds "
+          f"(K, S, T = {[(int(r[0].shape[0]), int(r[0].shape[1]), r[4]) for r in recorded]}) on {card}")
+    print(f"[mixed auto] timings {json.dumps({k: round(v, 4) for k, v in result.timings.items()})} "
+          f"counters {json.dumps(result.counters)}")
+    return fast_n, qcorr_n, b1_err, b2_err
+
+
+def mixed_online_phase(dev, card, survey, cfg, gt):
+    """The mixed automatic survey streamed arrival by arrival; returns (B1
+    launches, B2 launches)."""
+    from diasss_tpu_torch.features import fast_cuda
+    from diasss_tpu_torch.matching import dense_cuda
+    from diasss_tpu_torch.online import OnlineSlam
+
+    frames = build_frames(survey, dev)
+    slam = OnlineSlam(cfg, device=dev)
+    torch.cuda.synchronize()
+    fast_cuda.launches = dense_cuda.launches = 0
+    t0 = time.perf_counter()
+    poses = stream(slam, frames, "online mixed auto", card)
+    wall = time.perf_counter() - t0
+    fast_n, qcorr_n = fast_cuda.launches, dense_cuda.launches
+    pairs = slam.counters.get("match_perpair_pairs", 0)
+    check(fast_n == len(frames), f"online mixed: FAST kernel launched {fast_n} times for {len(frames)} arrivals")
+    check(qcorr_n == pairs > 0, f"online mixed: q-correlation kernel launched {qcorr_n} times for {pairs} pairs")
+    ate_dr, ate_est = ate_of(frames, poses, gt)
+    print(f"[online mixed auto] {int(poses.t.shape[0])} poses in {wall:.3f} s over {len(frames)} arrivals, ATE DR/EST "
+          f"{ate_dr:.4f}/{ate_est:.4f} m, FAST launches {fast_n}, q-correlation launches {qcorr_n} on {card}")
+    check(ate_est < ate_dr, f"online mixed: no improvement ({ate_est} >= {ate_dr})")
+    return fast_n, qcorr_n
+
+
+def cli_phase(dev, card, survey_kw, crops):
+    """The CLI in a subprocess on a mixed survey written to files: the
+    native reader ran, ``--trace`` holds CUDA kernel events, and the metrics
+    file's ATE agrees with an in-process run on the same files."""
+    from diasss_tpu_torch.config import PipelineConfig
+    from diasss_tpu_torch.io import save_survey
+    from diasss_tpu_torch.parallel.prefetch import load_keyframes_pipelined
+    from diasss_tpu_torch.pipeline import run_slam
+    from diasss_tpu_torch.synthetic import make_survey
+
+    survey = crop_lines(make_survey(**survey_kw), crops)
+    with tempfile.TemporaryDirectory() as tmp:
+        folders = save_survey(survey, tmp)
+        keys = ("image", "pose", "altitude", "groundrange", "annotation")
+        gt_dir, trace_dir, metrics = os.path.join(tmp, "gt-poses"), os.path.join(tmp, "trace"), os.path.join(tmp, "m.json")
+        args = [a for k in keys for a in (f"--{k}", folders[k])]
+        cmd = [sys.executable, "-m", "diasss_tpu_torch.cli", *args, "--gt", gt_dir, "--device", "cuda", "--trace",
+               trace_dir, "--metrics", metrics, "--no-eval2"]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                              cwd=os.path.dirname(os.path.abspath(__file__)))
+        seconds = time.perf_counter() - t0
+        check(proc.returncode == 0, f"CLI exited {proc.returncode}: {proc.stderr[-3000:]}")
+        with open(metrics) as f:
+            m = json.load(f)
+        with open(os.path.join(trace_dir, "trace.json")) as f:
+            events = json.load(f)["traceEvents"]
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        load = load_keyframes_pipelined(*[folders[k] for k in keys], device=dev)
+        gt = [np.loadtxt(os.path.join(gt_dir, n)) for n in sorted(os.listdir(gt_dir))]
+        ref = run_slam(load.frames, PipelineConfig(), gt_rows_list=gt, run_eval2=False)
+    lines = [l for l in proc.stdout.splitlines() if l.startswith(("loaded", "  image size", "profiler trace"))]
+    print(f"[cli] {' | '.join(lines)}")
+    print(f"[cli] {seconds:.3f} s as a subprocess; reader {m['reader']!r}; trace: {len(events)} events, {len(kernels)} "
+          f"CUDA kernel events; metrics ATE DR/EST {m['ate_dr']:.4f}/{m['ate_est']:.4f} m, in-process "
+          f"{ref.ate_est:.4f} m; loop closures {m['n_lc_accepted']}; counters {json.dumps(m['counters'])} on {card}")
+    check(m["reader"] == "native", f"CLI: the native reader did not run: {m['reader']}")
+    check(len(kernels) >= 1, f"CLI: the trace holds no CUDA kernel event ({len(events)} events)")
+    check(abs(m["ate_est"] - ref.ate_est) <= CLI_ATE_TOL,
+          f"CLI: metrics ATE {m['ate_est']} against the in-process run's {ref.ate_est}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device: torch.cuda.is_available() is False", file=sys.stderr)
@@ -906,13 +1105,14 @@ def main() -> int:
     auto_gt = [l.gt_poses for l in auto_survey.lines]
     recorded, correlate_args = [], []
     # warm-up, records the inputs of B2 and of the dense correlation
-    auto_run(build_frames(auto_survey, dev), auto_cfg, auto_gt, record=recorded, record_correlate=correlate_args)
+    warm = auto_run(build_frames(auto_survey, dev), auto_cfg, auto_gt, record=recorded,
+                    record_correlate=correlate_args)
     check(len(recorded) >= 1 and len(correlate_args) == len(recorded),
           "the automatic warm-up pass never reached the q-correlation")
     q_err, q_ms, q_dev_ms, q_dev_by, q_plain_ms, q_lib_ms, q_bound, q_by = qcorr_phase(dev, recorded,
                                                                                       correlate_args)
     del recorded, correlate_args
-    fast_auto, qcorr_auto = auto_phase(dev, auto_survey, auto_cfg, auto_gt, card)
+    fast_auto, qcorr_auto = auto_phase(dev, auto_survey, auto_cfg, auto_gt, card, warm.ate_est)
     marg_cfg = dataclasses.replace(auto_cfg, full_ba=dataclasses.replace(auto_cfg.full_ba, marginals=True))
     fast_marg, qcorr_marg = auto_marginals_phase(dev, auto_survey, marg_cfg, auto_gt, card)
 
@@ -929,6 +1129,9 @@ def main() -> int:
                                ("anno tridiag", pg(preconditioner="tridiag"))])
     survey12k, result12k = annotation_phase(dev, card, {**SURVEY, "n_lines": 20}, PipelineConfig(), "anno",
                                             variants=[("anno marginals", pg(marginals=True))])
+    print(f"[anno 12000] the float64 direct step: solve_capped {result12k.solve_capped}, pose_graph "
+          f"{result12k.timings['pose_graph']:.4f} s, ATE {result12k.ate_est:.4f} m")
+    check(not result12k.solve_capped, "anno 12000: the pose-graph solve stopped at its trial cap while improving")
     marginals_envelope(dev, survey12k, result12k.poses, card)
     del survey12k, result12k
     annotation_phase(dev, card, BA_SURVEY, ba(), "full_ba anno", profile=True,
@@ -944,6 +1147,15 @@ def main() -> int:
     fast_orb = descriptor_phase(dev, card, "orb")
     fast_geo_patch = descriptor_phase(dev, card, "geo_patch")
 
+    mixed_survey = crop_lines(auto_survey, MIXED_AUTO_CROPS)
+    mixed_gt = [l.gt_poses for l in mixed_survey.lines]
+    fast_mixed, qcorr_mixed, b1_mixed_err, b2_mixed_err = mixed_auto_phase(dev, card, mixed_survey, auto_cfg, mixed_gt)
+    fast_mixed_online, qcorr_mixed_online = mixed_online_phase(dev, card, mixed_survey, auto_cfg, mixed_gt)
+    # the crop leaves 2 gated pairs and 8 annotated correspondences, none accepted (as in the JAX package)
+    annotation_phase(dev, card, SURVEY, PipelineConfig(), "mixed anno", crops=MIXED_ANNO_CROPS, improve=False)
+    annotation_phase(dev, card, BA_SURVEY, ba(), "mixed full_ba anno", crops=MIXED_BA_CROPS)
+    cli_phase(dev, card, SURVEY, MIXED_ANNO_CROPS)
+
     print(json.dumps({"kernels": [
         {
             "name": "fast9_two_threshold",
@@ -953,8 +1165,9 @@ def main() -> int:
             "launches": fast_online,
             "launches_by_phase": {"auto": fast_auto, "auto_marginals": fast_marg, "detected": fast_detected,
                                   "online_auto": fast_online, "detected_orb": fast_orb,
-                                  "detected_geo_patch": fast_geo_patch},
-            "max_abs_err": fast_err,
+                                  "detected_geo_patch": fast_geo_patch, "mixed_auto": fast_mixed,
+                                  "online_mixed_auto": fast_mixed_online},
+            "max_abs_err": max(fast_err, b1_mixed_err),
             "ms": fast_ms,
             "device_ms": fast_dev_ms,
             "device_ms_by": fast_dev_by,
@@ -969,8 +1182,9 @@ def main() -> int:
             "source": "diasss_tpu_torch/csrc/qcorr.cu",
             "replaces": "diasss_tpu/matching/dense_pallas.py:32",
             "launches": qcorr_online,
-            "launches_by_phase": {"auto": qcorr_auto, "auto_marginals": qcorr_marg, "online_auto": qcorr_online},
-            "max_abs_err": q_err,
+            "launches_by_phase": {"auto": qcorr_auto, "auto_marginals": qcorr_marg, "online_auto": qcorr_online,
+                                  "mixed_auto": qcorr_mixed, "online_mixed_auto": qcorr_mixed_online},
+            "max_abs_err": max(q_err, b2_mixed_err),
             "ms": q_ms,
             "device_ms": q_dev_ms,
             "device_ms_by": q_dev_by,

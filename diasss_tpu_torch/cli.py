@@ -6,7 +6,15 @@ Same folder flags as :mod:`diasss_tpu.cli` (the reference binary's five, plus
     python -m diasss_tpu_torch.cli --image DIR --pose DIR --altitude DIR \\
         --groundrange DIR --annotation DIR [--detected [--descriptor sift|orb|geo_patch] \\
         | --auto [--drift-budget M]] [--estimator full_ba] [--online [--window W]] \\
-        [--device cuda] [--gt DIR] [--out DIR] [--metrics FILE] [--no-marginals] [--mosaic FILE.png]
+        [--device cuda] [--gt DIR] [--out DIR] [--metrics FILE] [--no-marginals] [--mosaic FILE.png] \
+        [--trace DIR]
+
+The lines load through :func:`.parallel.prefetch.load_keyframes_pipelined`:
+line k+1 is parsed on a host thread (by the native C++ reader when it
+builds, else the Python parser; the CLI prints which) while line k is built
+and, for ``--detected`` and ``--auto``, detected on the device.  ``--trace
+DIR`` writes a ``torch.profiler`` Chrome trace of the solve (CPU and, on
+the card, CUDA activity) to ``DIR/trace.json``.
 
 ``--auto`` runs the automatic profile (dense world-correlation matching,
 joint full BA, drift-compensated re-matching); ``--estimator full_ba`` runs
@@ -67,6 +75,8 @@ def main(argv=None) -> int:
     parser.add_argument("--mesh", type=int, default=None, metavar="N", help="N-device mesh")
     parser.add_argument("--no-marginals", action="store_true",
                         help="skip the exact per-pose marginal covariances that --out/--metrics turn on")
+    parser.add_argument("--trace", default=None, metavar="DIR",
+                        help="write a torch.profiler Chrome trace of the solve to DIR/trace.json")
     args = parser.parse_args(argv)
 
     if args.mesh:
@@ -76,8 +86,7 @@ def main(argv=None) -> int:
     import torch
 
     from .config import PipelineConfig, automatic_config, detected_config
-    from .frame import build_keyframes_batch
-    from .io import load_input_data
+    from .parallel.prefetch import load_keyframes_pipelined
     from .pipeline import run_slam
 
     device = torch.device(args.device)
@@ -102,15 +111,16 @@ def main(argv=None) -> int:
         else:
             cfg = dataclasses.replace(cfg, pose_graph=dataclasses.replace(cfg.pose_graph, marginals=True))
 
-    t0 = time.perf_counter()
-    data = load_input_data(args.image, args.pose, args.altitude, args.groundrange, args.annotation)
-    items = [
-        (k, img, pose, alt, gr, anno)
-        for k, (img, pose, alt, gr, anno) in enumerate(zip(
-            data.images, data.poses, data.altitudes, data.ground_ranges, data.annotations))
-    ]
-    frames = build_keyframes_batch(items, cfg.normalize, cfg.mask, device=device)
-    print(f"loaded {len(frames)} survey lines on {device} ({time.perf_counter() - t0:.2f}s)")
+    # detected and automatic runs detect each line as it is built; an online
+    # stream detects each arriving line itself
+    detect = not cfg.pose_graph.use_anno and not args.online
+    load = load_keyframes_pipelined(args.image, args.pose, args.altitude, args.groundrange, args.annotation,
+                                    detector_cfg=cfg.detector if detect else None, norm_cfg=cfg.normalize,
+                                    mask_cfg=cfg.mask, device=device)
+    frames = load.frames
+    print(f"loaded {len(frames)} survey lines on {device} pipelined: wall {load.timings['load_pipelined_wall']:.2f}s, "
+          f"host parse {load.timings['load_host_parse']:.2f}s{' (detection inline)' if detect else ''}; "
+          f"reader: {load.reader}")
     for f in frames:
         print(f"  image size: {f.raw.shape[0]} {f.raw.shape[1]}")
 
@@ -122,7 +132,13 @@ def main(argv=None) -> int:
         return _online(frames, cfg, args.window, gt_rows, args.out, device)
 
     t0 = time.perf_counter()
-    result = run_slam(frames, cfg, gt_rows_list=gt_rows, out_dir=args.out, run_eval2=not args.no_eval2)
+    if args.trace:
+        result = _traced(args.trace, device, lambda: run_slam(frames, cfg, gt_rows_list=gt_rows, out_dir=args.out,
+                                                               run_eval2=not args.no_eval2, feats=load.feats))
+    else:
+        result = run_slam(frames, cfg, gt_rows_list=gt_rows, out_dir=args.out, run_eval2=not args.no_eval2,
+                          feats=load.feats)
+    result.timings.update(load.timings)
     print(f"SLAM solved ({time.perf_counter() - t0:.2f}s)")
     if args.mosaic:
         from .mosaic import build_mosaic, save_mosaic_png
@@ -150,6 +166,7 @@ def main(argv=None) -> int:
         metrics = {
             "n_frames": len(frames),
             "device": str(device),
+            "reader": load.reader,
             "pairs": [list(p) for p in result.pair_ids],
             "n_lc_accepted": result.n_lc_accepted,
             "solve_error0": result.solve_error0,
@@ -172,6 +189,24 @@ def main(argv=None) -> int:
             json.dump(metrics, f, indent=2, default=float)
         print(f"metrics written to {args.metrics}")
     return 0
+
+
+def _traced(trace_dir: str, device, run):
+    """``run()`` under ``torch.profiler`` with CPU activity and, on the card,
+    CUDA activity; the Chrome trace goes to ``trace_dir/trace.json``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from .pipeline import _sync
+
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
+    with profile(activities=activities) as prof:
+        result = run()
+        _sync(device)
+    os.makedirs(trace_dir, exist_ok=True)
+    path = os.path.join(trace_dir, "trace.json")
+    prof.export_chrome_trace(path)
+    print(f"profiler trace written to {path}")
+    return result
 
 
 def _online(frames, cfg, window, gt_rows, out_dir, device) -> int:

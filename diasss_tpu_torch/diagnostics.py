@@ -5,9 +5,9 @@ Counterpart of :mod:`diasss_tpu.diagnostics`:
 * :func:`check_finite` walks a result tree (the port's NamedTuples,
   ``Pose3``, dicts, lists; tensor, numpy or scalar leaves) for NaN / Inf;
 * :func:`determinism_report` runs a computation several times and compares
-  the results bit for bit.  On the card, segment sums by ``index_add_`` add
-  with atomics in varying order (ROADMAP C11), so a full-BA solve there may
-  report deviations that the CPU does not.
+  the results bit for bit.  The solvers' and the matcher's segment sums add
+  in a fixed order on every device (:mod:`.segments`), so a solve repeats
+  itself bit for bit on the card as on the CPU.
 """
 
 from __future__ import annotations

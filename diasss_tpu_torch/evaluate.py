@@ -73,9 +73,12 @@ def eval_landmark_consistency_stacked(
     gras_all: torch.Tensor,  # (F, G)
     est_poses: se3.Pose3,  # (P,) global solved poses
     frame_offsets: np.ndarray,  # (F,) global pose offset of each frame
-    n_bins: int,
+    n_bins,  # int, or (F,) one bin count per frame
 ):
-    """eval_1 for every frame pair in one batch and one host transfer."""
+    """eval_1 for every frame pair in one batch and one host transfer.  Both
+    projections of a row take its source frame's bin count, as the JAX
+    package's per-pair ``eval_landmark_consistency`` does (padded tables as
+    :func:`.solvers.lc.loop_closing_tfs_stacked` takes them)."""
     if len(pairs_cat) == 0:
         return {key: EMPTY_EVAL1 for key, _, _ in blocks}
     dev = geo_all.device
@@ -84,6 +87,8 @@ def eval_landmark_consistency_stacked(
     off = torch.as_tensor(np.asarray(frame_offsets), dtype=torch.int64, device=dev)
     pose_s = est_poses[off[sf] + id_s]
     pose_t = est_poses[off[tf] + id_t]
+    if isinstance(n_bins, torch.Tensor):
+        n_bins = n_bins[sf]
     proj_s = sonar.project_landmark_geo(pose_s.t[:, :2], so3.yaw(pose_s.R), bin_s, gras_all[sf], n_bins)
     proj_t = sonar.project_landmark_geo(pose_t.t[:, :2], so3.yaw(pose_t.R), bin_t, gras_all[tf], n_bins)
     fnl_xy = proj_s - proj_t

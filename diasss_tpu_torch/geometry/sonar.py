@@ -13,9 +13,12 @@ import math
 import torch
 
 
-def ground_range_index(col: torch.Tensor, n_bins: int) -> torch.Tensor:
+def ground_range_index(col: torch.Tensor, n_bins) -> torch.Tensor:
+    """``n_bins``: an int, or a tensor of bin counts that broadcasts against
+    ``col`` (one per entry, on a survey whose lines differ in bin count)."""
     half = n_bins // 2
-    return torch.clamp(torch.abs(col - half), 0, half - 1)
+    top = torch.as_tensor(half - 1, device=col.device)
+    return torch.clamp(torch.minimum(torch.abs(col - half), top), min=0)
 
 
 def is_starboard(col: torch.Tensor, n_bins: int) -> torch.Tensor:
@@ -68,13 +71,15 @@ def geo_bbox(geo: torch.Tensor) -> torch.Tensor:
     return torch.stack([x.amin(-1), x.amax(-1), y.amin(-1), y.amax(-1)], dim=-1)
 
 
-def project_landmark_geo(pose_xy, pose_yaw, col, ground_ranges, n_bins: int):
+def project_landmark_geo(pose_xy, pose_yaw, col, ground_ranges, n_bins):
     """Geo (x, y) of the pixel at column ``col`` under pose (xy, yaw) — the
     evaluator's re-projection, with the reference's extra ``-pi`` side flip.
     ``ground_ranges`` is one (G,) table or one table per column entry
-    (..., G)."""
+    (..., G); ``n_bins`` an int or one bin count per column entry."""
     half = n_bins // 2
-    idx = ground_range_index(col, n_bins)
+    # a table shorter than the bin count's half (another line's) is read
+    # clamped to its last entry, as the JAX package's gather reads it
+    idx = torch.clamp(ground_range_index(col, n_bins), max=ground_ranges.shape[-1] - 1)
     if ground_ranges.dim() == 1:
         gr = ground_ranges[idx]
     else:

@@ -10,6 +10,11 @@ Reads five folders (sorted by filename, matching the reference's
 * groundranges: plain text, one float per line  (M/2 values)
 * annotations:  OpenCV XML, key ``anno_kps``    (K x 7 int)
 
+The files are read by the native C++ reader (:mod:`..native`) when it
+builds and loads, else by the pure-Python parsers, as the JAX package's
+loader does; ``SurveyData.reader`` says which one ran, and why the native
+one did not.
+
 Also provides :func:`save_survey` to write a synthetic survey in the same
 formats — the test_data equivalent for the CLI and golden tests.
 """
@@ -30,6 +35,7 @@ class SurveyData(NamedTuple):
     altitudes: List[np.ndarray]
     ground_ranges: List[np.ndarray]
     annotations: List[np.ndarray]
+    reader: str = "python"  # which reader ran: "native", or "python (...why...)"
 
 
 def _sorted_files(folder: str) -> List[str]:
@@ -46,16 +52,30 @@ def _read_txt_column(path: str) -> np.ndarray:
     return np.asarray(vals)
 
 
+def _readers(use_native: bool):
+    """``(read_matrix, read_txt_column, reader)``: the native reader's
+    functions when ``use_native`` and it is available, else the Python
+    parsers', with the reason in ``reader``."""
+    if not use_native:
+        return read_matrix, _read_txt_column, "python (use_native=False)"
+    from .. import native
+
+    if native.available():
+        return native.read_matrix, native.read_txt_column, "native"
+    return read_matrix, _read_txt_column, f"python (native reader unavailable: {native.unavailable_reason()})"
+
+
 def load_input_data(
     image_folder: str,
     pose_folder: str,
     altitude_folder: str,
     groundrange_folder: str,
     annotation_folder: str,
+    use_native: bool = True,
 ) -> SurveyData:
-    """Load a survey with the pure-Python parsers (the JAX package's C++
-    native reader is not part of the port)."""
-    read_mat, read_txt = read_matrix, _read_txt_column
+    """Load a survey; the C++ native reader when it is available, else the
+    pure-Python parsers (``SurveyData.reader`` says which)."""
+    read_mat, read_txt, reader = _readers(use_native)
     images = [read_mat(p, "ct_img") for p in _sorted_files(image_folder)]
     poses = [read_mat(p, "auv_pose") for p in _sorted_files(pose_folder)]
     altitudes = [read_txt(p) for p in _sorted_files(altitude_folder)]
@@ -68,7 +88,7 @@ def load_input_data(
             f"{n} images, {len(poses)} poses, {len(altitudes)} altitudes, "
             f"{len(ground_ranges)} ground ranges, {len(annotations)} annotations"
         )
-    return SurveyData(images, poses, altitudes, ground_ranges, annotations)
+    return SurveyData(images, poses, altitudes, ground_ranges, annotations, reader)
 
 
 def save_survey(survey, out_dir: str) -> dict:

@@ -4,7 +4,7 @@ repeatability.
 Counterpart of :mod:`diasss_tpu.matching.dense` (full-map path):
 
 1. every frame is rasterized into a world-aligned grid (scatter-mean of the
-   normalized waterfall by ``index_add_``), keeping per-cell mean (ping, bin)
+   normalized waterfall by deterministic segment sums), keeping per-cell mean (ping, bin)
    provenance so matches map back to waterfall coordinates;
 2. each source keypoint's world-aligned patch is read from its own frame's
    raster, and slid over every stride-1 offset around its predicted position
@@ -36,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from ..config import DenseMatchConfig, DetectorConfig
+from ..segments import segment_sum
 
 
 class WorldRaster(NamedTuple):
@@ -61,9 +62,9 @@ class DenseMatches(NamedTuple):
 def _rasterize(norm_img, geo, x0, y0, res: float, width: int, height: int):
     """Scatter-mean rasters of a batch of frames: ``norm_img`` (F, N, M),
     ``geo`` (F, N, M, 2), ``x0``/``y0`` (F,) float32 -> (img, cnt, ping, col),
-    each (F, height, width).  One ``index_add_`` per quantity over all frames;
-    on CUDA it adds with atomics, so the sums (not the counts) vary in the
-    last bit from run to run."""
+    each (F, height, width).  One segment sum (:mod:`..segments`, a fixed
+    order of addition on every device) of all four quantities over all
+    frames."""
     Fn, n, m = norm_img.shape
     dev = norm_img.device
     xi = torch.clamp(((geo[..., 0] - x0[:, None, None]) / res).to(torch.int32), 0, width - 1)
@@ -75,11 +76,7 @@ def _rasterize(norm_img, geo, x0, y0, res: float, width: int, height: int):
     pings = torch.arange(n, dtype=torch.float32, device=dev)[None, :, None].expand(Fn, n, m).reshape(-1)
     cols = torch.arange(m, dtype=torch.float32, device=dev)[None, None, :].expand(Fn, n, m).reshape(-1)
 
-    def seg(x):
-        return torch.zeros(Fn * total, dtype=torch.float32, device=dev).index_add_(0, flat, x)
-
-    c = seg(torch.ones_like(v))
-    s, sp, sc = seg(v), seg(pings), seg(cols)
+    c, s, sp, sc = segment_sum(torch.stack([torch.ones_like(v), v, pings, cols], 1), flat, Fn * total).unbind(1)
     cs = torch.clamp(c, min=1.0)
     shape = (Fn, height, width)
     return (s / cs).reshape(shape), c.reshape(shape), (sp / cs).reshape(shape), (sc / cs).reshape(shape)
@@ -383,26 +380,30 @@ def dense_matching_stacked(pair_ids, img_ids, feats_list, norm_list, geo_list, d
         raise NotImplementedError("dense matching over a device mesh is not ported yet (ROADMAP A14: multi-device)")
     res = det_cfg.geopatch_res
     dev = geo_list[0].device
-    margin = 2.0
-    same_shape = len({tuple(g.shape) for g in geo_list}) == 1
-    if same_shape:
+    xy_st = torch.stack([f.xy for f in feats_list])
+    if len({tuple(g.shape) for g in geo_list}) == 1:
+        # one bounds reduction and one rasterization for all frames
+        margin = 2.0
         geo_st = torch.stack(list(geo_list))
         bb = _geo_bounds_batch(geo_st).cpu().numpy()  # (F, 4) float32
-    else:
-        bb = np.concatenate([_geo_bounds_batch(g[None]).cpu().numpy() for g in geo_list])
-    shapes = [_shape_from_bounds(*bb[f], res, margin) for f in range(len(geo_list))]
-    H = max(s[0] for s in shapes)
-    W = max(s[1] for s in shapes)
-    x0_np, y0_np = _origins(bb, margin)
-    x0s, y0s = torch.as_tensor(x0_np, device=dev), torch.as_tensor(y0_np, device=dev)
-    xy_st = torch.stack([f.xy for f in feats_list])
-    if same_shape:
+        shapes = [_shape_from_bounds(*bb[f], res, margin) for f in range(len(geo_list))]
+        H = max(s[0] for s in shapes)
+        W = max(s[1] for s in shapes)
+        x0_np, y0_np = _origins(bb, margin)
+        x0s, y0s = torch.as_tensor(x0_np, device=dev), torch.as_tensor(y0_np, device=dev)
         rimg, rcnt, rping, rcol = _rasterize(torch.stack(list(norm_list)), geo_st, x0s, y0s, res, W, H)
         geo_kps = _geo_kps_batch(geo_st, xy_st)
     else:
-        parts = [_rasterize(nm[None], g[None], x0s[f:f + 1], y0s[f:f + 1], res, W, H)
-                 for f, (nm, g) in enumerate(zip(norm_list, geo_list))]
-        rimg, rcnt, rping, rcol = (torch.cat([p[q] for p in parts]) for q in range(4))
+        # frames of different shapes (the JAX package's mixed branch): each
+        # rasterized on its own at the survey-common shape, each keypoint's
+        # geo read from its own frame, clipped to that frame's axes
+        shapes = [raster_shape(g, res) for g in geo_list]
+        H = max(s[0] for s in shapes)
+        W = max(s[1] for s in shapes)
+        rasters = [world_raster(nm, g, res, shape=(H, W)) for nm, g in zip(norm_list, geo_list)]
+        rimg, rcnt, rping, rcol = (torch.stack([getattr(r, a) for r in rasters]) for a in ("img", "cnt", "ping", "col"))
+        x0s = torch.tensor([r.x0 for r in rasters], dtype=torch.float32, device=dev)
+        y0s = torch.tensor([r.y0 for r in rasters], dtype=torch.float32, device=dev)
         geo_kps = torch.cat([_geo_kps_batch(g[None], f.xy[None]) for f, g in zip(feats_list, geo_list)])
     kp_valid = torch.stack([f.valid for f in feats_list])
     si = torch.as_tensor([i for (i, j) in pair_ids], dtype=torch.int64, device=dev)

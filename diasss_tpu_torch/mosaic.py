@@ -3,8 +3,9 @@
 Counterpart of :mod:`diasss_tpu.mosaic`: every waterfall pixel has a world
 (x, y) from its geo image; intensities are normalized per column
 (:func:`.frame.normalize_columns`), bucketed into a world grid and averaged
-where frames overlap — a scatter-mean by ``index_add_`` into shared (sum,
-count) planes on the frames' device.
+where frames overlap — a scatter-mean by one deterministic segment sum
+(:mod:`.segments`) of every frame's pixels into (sum, count) planes on the
+frames' device.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import numpy as np
 import torch
 
 from .frame import Keyframe, normalize_columns
+from .segments import segment_sum
 
 
 def build_mosaic(frames: List[Keyframe], resolution: float = 0.25, margin: float = 5.0, geo_list=None):
@@ -35,15 +37,14 @@ def build_mosaic(frames: List[Keyframe], resolution: float = 0.25, margin: float
     height = int((ext[:, 3].max() + margin - y0) / resolution) + 1
 
     dev = geos[0].device
-    total = torch.zeros(height * width, dtype=torch.float32, device=dev)
-    count = torch.zeros(height * width, dtype=torch.float32, device=dev)
+    flats, vals = [], []
     for f, g in zip(frames, geos):
         xi = torch.clamp(((g[..., 0] - x0) / resolution).to(torch.int32), 0, width - 1)
         yi = torch.clamp(((g[..., 1] - y0) / resolution).to(torch.int32), 0, height - 1)
-        flat = (yi * width + xi).reshape(-1).to(torch.int64)
-        v = normalize_columns(f.raw.to(dev)).to(torch.float32).reshape(-1)
-        total.index_add_(0, flat, v)
-        count.index_add_(0, flat, torch.ones_like(v))
+        flats.append((yi * width + xi).reshape(-1).to(torch.int64))
+        vals.append(normalize_columns(f.raw.to(dev)).to(torch.float32).reshape(-1))
+    v = torch.cat(vals)
+    total, count = segment_sum(torch.stack([v, torch.ones_like(v)], 1), torch.cat(flats), height * width).unbind(1)
     mosaic = torch.where(count > 0, total / torch.clamp(count, min=1.0), float("nan"))
     return mosaic.reshape(height, width).cpu().numpy(), x0, y0, resolution
 

@@ -1,2 +1,3 @@
-"""Host-side parallelism of the port: :func:`.prefetch.prefetch_iter` only
-(the JAX package's mesh, ring and sequence-parallel modules are ROADMAP A14)."""
+"""Host-side parallelism of the port: :mod:`.prefetch` (the overlap of host
+parsing with device work; the JAX package's mesh, ring and
+sequence-parallel modules are ROADMAP A14)."""

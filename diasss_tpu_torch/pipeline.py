@@ -17,9 +17,11 @@ search extent shrinks to the measured residual, and the solve is
 warm-started.  The automatic profile (``config.automatic_config()``) runs
 detection, dense matching, full BA and two re-match rounds.
 
-Not ported yet, and raising with their ROADMAP item: ``mesh_devices`` (A14)
-and surveys whose lines differ in bin count (A8).  The per-pair matchers
-(``stacked=False``) serve the online stream (:mod:`.online`).
+Not ported yet, and raising with its ROADMAP item: ``mesh_devices`` (A14).
+A survey whose lines differ in ping or bin count runs the same stacked
+stages, its per-frame arrays padded to the longest axes
+(:func:`_stack_padded`).  The per-pair matchers (``stacked=False``) serve
+the online stream (:mod:`.online`).
 
 Stage times go to ``SlamResult.timings`` (seconds, each stage ended by a
 device synchronise) and path counters to ``SlamResult.counters``.
@@ -89,8 +91,6 @@ def _check_supported(frames, cfg: PipelineConfig) -> None:
         raise ValueError(f"unknown estimator {cfg.estimator!r}")
     if cfg.mesh_devices:
         todo("mesh_devices (multi-device solves and matching)", "A14: multi-device")
-    if len({int(f.geo.shape[1]) for f in frames}) > 1:
-        todo("surveys whose lines differ in bin count", "A8: mixed-shape surveys")
 
 
 def _sync(device: torch.device) -> None:
@@ -99,11 +99,21 @@ def _sync(device: torch.device) -> None:
 
 
 def _stack_padded(tensors: List[torch.Tensor]) -> torch.Tensor:
-    """Stack per-frame tensors, zero-padding the ping axis (dim 0) to the
-    longest frame; every consumer gathers by in-range ping index only."""
-    n = max(int(t.shape[0]) for t in tensors)
-    return torch.stack([torch.nn.functional.pad(t, (0, 0) * (t.dim() - 1) + (0, n - t.shape[0]))
-                        for t in tensors])
+    """Stack per-frame tensors, zero-padding every axis (pings, bins) to the
+    longest frame's; every consumer gathers by in-range (ping, bin) only."""
+    shape = [max(int(t.shape[d]) for t in tensors) for d in range(tensors[0].dim())]
+    pads = [sum(((0, shape[d] - int(t.shape[d])) for d in reversed(range(t.dim()))), ()) for t in tensors]
+    return torch.stack([torch.nn.functional.pad(t, p) for t, p in zip(tensors, pads)])
+
+
+def _stack_tables(frames: List[Keyframe]):
+    """Every frame's ground-range table, each padded with its last entry to
+    the longest (the value the JAX package's clamped read of a shorter table
+    returns), and every frame's bin count, on the frames' device."""
+    tables = [f.ground_ranges for f in frames]
+    g = max(int(t.shape[0]) for t in tables)
+    gras = torch.stack([torch.cat([t, t[-1:].expand(g - t.shape[0])]) for t in tables])
+    return gras, torch.as_tensor([int(f.raw.shape[1]) for f in frames], device=gras.device)
 
 
 def _overlap_pairs(frames: List[Keyframe], min_overlap: float,
@@ -282,11 +292,12 @@ def _solve_two_stage(frames, geo_list, kps_pairs, pair_ids, cap, cfg: PipelineCo
         def up(a, dtype=None):
             return torch.as_tensor(a, dtype=dtype, device=dev)
 
+        gras, n_bins = _stack_tables(frames)
         stacked = loop_closing_tfs_stacked(
             up(rows_cat), up(valid_cat), up(src_cat, torch.int64), up(tgt_cat, torch.int64),
             _stack_padded([f.dr_poses for f in frames]), _stack_padded(list(geo_list)),
-            _stack_padded([f.altitudes for f in frames]), torch.stack([f.ground_ranges for f in frames]),
-            n_bins=int(frames[0].raw.shape[1]), kp_cfg=cfg.kp_noise, cfg=cfg.loop_closure,
+            _stack_padded([f.altitudes for f in frames]), gras, n_bins=n_bins, kp_cfg=cfg.kp_noise,
+            cfg=cfg.loop_closure,
         )
         host = pytree.tree_map(lambda a: a.cpu(), stacked)
         for k, key in enumerate(pair_ids):
@@ -343,12 +354,17 @@ def _solve_two_stage(frames, geo_list, kps_pairs, pair_ids, cap, cfg: PipelineCo
     return poses, info, lc_results, n_acc, graph
 
 
-def _evaluate_pairs(frames, kps_pairs, pair_ids, poses, offsets, cfg, run_eval2):
-    """eval_1 (and eval_2) for every gated pair in one stacked batch."""
+def _evaluate_pairs(frames, kps_pairs, pair_ids, poses, offsets, cfg, run_eval2, counters):
+    """eval_1 (and eval_2) for every gated pair in one stacked batch, also on
+    a survey whose lines differ in shape (the JAX package evaluates those
+    pair by pair), counted in ``counters['eval_stacked_pairs']``; the port
+    has no per-pair evaluation, so its ``eval_perpair_pairs`` stays 0 and,
+    as in the JAX package, is not recorded."""
     from .evaluate import eval_landmark_consistency_stacked, eval_triangulated_consistency_stacked
 
     if not pair_ids:
         return {}, {}
+    _count(counters, "eval_stacked_pairs", len(pair_ids))
     rows_list, sf_list, tf_list, blocks = [], [], [], []
     start = 0
     for (i, j) in pair_ids:
@@ -361,10 +377,9 @@ def _evaluate_pairs(frames, kps_pairs, pair_ids, poses, offsets, cfg, run_eval2)
         start += len(rows)
     rows_cat, sf_cat, tf_cat = np.concatenate(rows_list), np.concatenate(sf_list), np.concatenate(tf_list)
     geo_all = _stack_padded([f.geo for f in frames])
-    eval1 = eval_landmark_consistency_stacked(
-        rows_cat, sf_cat, tf_cat, blocks, geo_all, torch.stack([f.ground_ranges for f in frames]),
-        poses, offsets[:-1], int(frames[0].raw.shape[1]),
-    )
+    gras, n_bins = _stack_tables(frames)
+    eval1 = eval_landmark_consistency_stacked(rows_cat, sf_cat, tf_cat, blocks, geo_all, gras, poses, offsets[:-1],
+                                              n_bins)
     eval2 = {}
     if run_eval2:
         eval2 = eval_triangulated_consistency_stacked(
@@ -606,7 +621,7 @@ def run_slam(
     t0 = time.perf_counter()
     offsets = np.cumsum([0] + [int(f.dr_poses.shape[0]) for f in frames])
     frame_slices = [slice(int(offsets[k]), int(offsets[k + 1])) for k in range(len(frames))]
-    eval1, eval2 = _evaluate_pairs(frames, kps_pairs, pair_ids, poses, offsets, cfg, run_eval2)
+    eval1, eval2 = _evaluate_pairs(frames, kps_pairs, pair_ids, poses, offsets, cfg, run_eval2, counters)
     ate_dr = ate_est = None
     if gt_rows_list is not None:
         from .evaluate import trajectory_ate_pair

@@ -20,7 +20,7 @@ marginal covariances at the solution.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -30,6 +30,7 @@ from ..config import FullBAConfig
 from ..factors.between import between_residual
 from ..factors.sss_point import kp_noise_sigmas, sss_point_residual
 from ..geometry import se3
+from ..segments import Segments, chain_sum, segments
 from .lm import cholesky_solve_or_nan
 
 MAX_DIRECT_KPAD = 2048
@@ -155,8 +156,17 @@ def _ba_error_from_residuals(r_odo, r_s, r_t, r_pr, huber_delta: float) -> torch
     return 0.5 * (torch.sum(r_odo ** 2) + torch.sum(r_pr ** 2)) + rob
 
 
-def _segment_sum(x: torch.Tensor, idx: torch.Tensor, P: int) -> torch.Tensor:
-    return torch.zeros((P,) + x.shape[1:], dtype=x.dtype, device=x.device).index_add_(0, idx, x)
+def kp_segments(prob: BAProblem) -> Tuple[Segments, Segments]:
+    """The segment plans of the sonar factors' source and target poses
+    (``kp_i``, ``kp_j``); one pair per solve."""
+    P = int(prob.poses0.t.shape[0])
+    return segments(prob.kp_i, P), segments(prob.kp_j, P)
+
+
+def _kp_sum(segs, xs: torch.Tensor, xt: torch.Tensor) -> torch.Tensor:
+    """(P, ...) sums of per-correspondence terms, ``xs`` at ``kp_i`` and
+    ``xt`` at ``kp_j``."""
+    return segs[0].sum(xs) + segs[1].sum(xt)
 
 
 def _schur_columns(prob, L_ll, Hpl_s, Hpl_t, P: int, K: int, k_cols):
@@ -253,14 +263,11 @@ class _Normal(NamedTuple):
     U_chain: torch.Tensor  # (P-1, 6, 6) odometry couplings (i, i+1)
 
 
-def _normal_blocks(poses, lms, prob: BAProblem, sig_s, sig_t, huber_delta: float) -> _Normal:
+def _normal_blocks(poses, lms, prob: BAProblem, sig_s, sig_t, huber_delta: float, segs) -> _Normal:
     from .pose_graph import _linearize_between
 
-    P = poses.t.shape[0]
     dtype, dev = lms.dtype, lms.device
     eye3 = torch.eye(3, dtype=dtype, device=dev)
-    idx_a = torch.arange(P - 1, device=dev)
-    idx_b = idx_a + 1
     r_o, Ja, Jb = _linearize_between(poses[:-1], poses[1:], prob.odo_meas, prob.odo_sigmas)
 
     pose_i, pose_j = _endpoint_poses(poses, prob)
@@ -290,17 +297,17 @@ def _normal_blocks(poses, lms, prob: BAProblem, sig_s, sig_t, huber_delta: float
     def tmm(A, B):  # A^T B per factor
         return A.transpose(-1, -2) @ B
 
-    g_p = (_segment_sum(tmv(Ja, r_o), idx_a, P) + _segment_sum(tmv(Jb, r_o), idx_b, P)
-           + _segment_sum(tmv(Jp_s, r_s), prob.kp_i, P) + _segment_sum(tmv(Jp_t, r_t), prob.kp_j, P))
+    seg_i, seg_j = segs
+    g_p = chain_sum(tmv(Ja, r_o), tmv(Jb, r_o)) + seg_i.sum(tmv(Jp_s, r_s)) + seg_j.sum(tmv(Jp_t, r_t))
     g_l = tmv(Jl_s, r_s) + tmv(Jl_t, r_t) + tmv(Jl_pr, r_pr)
-    D_p = (_segment_sum(tmm(Ja, Ja), idx_a, P) + _segment_sum(tmm(Jb, Jb), idx_b, P)
-           + _segment_sum(tmm(Jp_s, Jp_s), prob.kp_i, P) + _segment_sum(tmm(Jp_t, Jp_t), prob.kp_j, P))
+    D_p = chain_sum(tmm(Ja, Ja), tmm(Jb, Jb)) + seg_i.sum(tmm(Jp_s, Jp_s)) + seg_j.sum(tmm(Jp_t, Jp_t))
     H_ll = tmm(Jl_s, Jl_s) + tmm(Jl_t, Jl_t) + tmm(Jl_pr, Jl_pr)
     return _Normal(Ja, Jb, Jp_s, Jp_t, Jl_s, Jl_t, g_p, g_l, D_p, H_ll, tmm(Jp_s, Jl_s), tmm(Jp_t, Jl_t),
                    tmm(Ja, Jb))
 
 
-def _pcg_ba_step(kind: str, prob, nb: _Normal, g_red, D_p, ll_solve, L_ll, lam, P: int, cfg: FullBAConfig):
+def _pcg_ba_step(kind: str, prob, segs, nb: _Normal, g_red, D_p, ll_solve, L_ll, lam, P: int,
+                 cfg: FullBAConfig):
     """Damped step of the Schur-reduced pose system by PCG; returns (delta,
     CG iterations).  The product is applied factor-wise (odometry chain,
     sonar pose diagonal, damping, minus ``Hpl H_ll^-1 H_lp``).  The
@@ -317,8 +324,6 @@ def _pcg_ba_step(kind: str, prob, nb: _Normal, g_red, D_p, ll_solve, L_ll, lam, 
 
     dev = D_p.device
     eye6 = torch.eye(6, dtype=D_p.dtype, device=dev)
-    idx_a = torch.arange(P - 1, device=dev)
-    idx_b = idx_a + 1
     kp_i, kp_j = prob.kp_i, prob.kp_j
     Ja_t, Jb_t = nb.Ja.transpose(-1, -2), nb.Jb.transpose(-1, -2)
     Jps_t, Jpt_t = nb.Jp_s.transpose(-1, -2), nb.Jp_t.transpose(-1, -2)
@@ -329,18 +334,18 @@ def _pcg_ba_step(kind: str, prob, nb: _Normal, g_red, D_p, ll_solve, L_ll, lam, 
 
     def matvec(v):
         v = torch.cat([torch.zeros_like(v[:1]), v[1:]])
-        a = mv(nb.Ja, v[idx_a]) + mv(nb.Jb, v[idx_b])
-        out = _segment_sum(mv(Ja_t, a), idx_a, P) + _segment_sum(mv(Jb_t, a), idx_b, P)
+        a = mv(nb.Ja, v[:-1]) + mv(nb.Jb, v[1:])
+        out = chain_sum(mv(Ja_t, a), mv(Jb_t, a))
         b_s, b_t = mv(nb.Jp_s, v[kp_i]), mv(nb.Jp_t, v[kp_j])
-        out = out + _segment_sum(mv(Jps_t, b_s), kp_i, P) + _segment_sum(mv(Jpt_t, b_t), kp_j, P)
+        out = out + segs[0].sum(mv(Jps_t, b_s)) + segs[1].sum(mv(Jpt_t, b_t))
         out = out + lam * mv(D_p, v)
         yv = ll_solve(mv(Jls_t, b_s) + mv(Jlt_t, b_t))  # H_ll^-1 H_lp v
-        out = out - (_segment_sum(mv(nb.Hpl_s, yv), kp_i, P) + _segment_sum(mv(nb.Hpl_t, yv), kp_j, P))
+        out = out - _kp_sum(segs, mv(nb.Hpl_s, yv), mv(nb.Hpl_t, yv))
         out[0] = 0.0
         return out
 
-    corr = (_segment_sum(nb.Hpl_s @ torch.cholesky_solve(nb.Hpl_s.transpose(-1, -2), L_ll), kp_i, P)
-            + _segment_sum(nb.Hpl_t @ torch.cholesky_solve(nb.Hpl_t.transpose(-1, -2), L_ll), kp_j, P))
+    corr = _kp_sum(segs, nb.Hpl_s @ torch.cholesky_solve(nb.Hpl_s.transpose(-1, -2), L_ll),
+                   nb.Hpl_t @ torch.cholesky_solve(nb.Hpl_t.transpose(-1, -2), L_ll))
     Dp_damped = D_p * (1.0 + lam) - corr
     Dp_damped[0] = eye6
     Dp_damped = Dp_damped + 1e-5 * eye6
@@ -367,13 +372,14 @@ def _pcg_ba_step(kind: str, prob, nb: _Normal, g_red, D_p, ll_solve, L_ll, lam, 
     return _pcg(matvec, -g_red, precond, cfg.cg_tol, cfg.cg_max_iters)
 
 
-def _trial(poses, lms, err, lam, prob: BAProblem, sig_s, sig_t, cfg: FullBAConfig, kp_cfg, kind: str, k_cols):
+def _trial(poses, lms, err, lam, prob: BAProblem, segs, sig_s, sig_t, cfg: FullBAConfig, kp_cfg, kind: str,
+           k_cols):
     """One LM trial; returns (poses, lms, err, lam, CG iterations)."""
     from .pose_graph import _cholesky_or_nan
 
     P = poses.t.shape[0]
     dtype, dev = lms.dtype, lms.device
-    nb = _normal_blocks(poses, lms, prob, sig_s, sig_t, cfg.huber_delta)
+    nb = _normal_blocks(poses, lms, prob, sig_s, sig_t, cfg.huber_delta, segs)
     L_ll = _cholesky_or_nan(nb.H_ll * (1.0 + lam) + 1e-6 * torch.eye(3, dtype=dtype, device=dev))
 
     def ll_solve(x):  # (K, 3)
@@ -384,15 +390,14 @@ def _trial(poses, lms, err, lam, prob: BAProblem, sig_s, sig_t, cfg: FullBAConfi
     D_p = nb.D_p.clone()
     D_p[0] = torch.eye(6, dtype=dtype, device=dev)
     y = ll_solve(nb.g_l)
-    g_red = g_p - (_segment_sum((nb.Hpl_s @ y[..., None])[..., 0], prob.kp_i, P)
-                   + _segment_sum((nb.Hpl_t @ y[..., None])[..., 0], prob.kp_j, P))
+    g_red = g_p - _kp_sum(segs, (nb.Hpl_s @ y[..., None])[..., 0], (nb.Hpl_t @ y[..., None])[..., 0])
     g_red[0] = 0.0
     if kind == "direct":
         delta_p = _direct_ba_step(prob, g_red, nb.U_chain, D_p, L_ll, nb.Hpl_s, nb.Hpl_t, lam, P,
                                   int(prob.kp_i.shape[0]), k_cols=k_cols)
         cg_k = 0
     else:
-        delta_p, cg_k = _pcg_ba_step(kind, prob, nb, g_red, D_p, ll_solve, L_ll, lam, P, cfg)
+        delta_p, cg_k = _pcg_ba_step(kind, prob, segs, nb, g_red, D_p, ll_solve, L_ll, lam, P, cfg)
     return _finish_trial(poses, lms, err, lam, delta_p, nb.Jp_s, nb.Jp_t, nb.Jl_s, nb.Jl_t, nb.g_l, ll_solve,
                          prob, kp_cfg, cfg, P) + (cg_k,)
 
@@ -416,11 +421,12 @@ def solve_full_ba(prob: BAProblem, cfg: FullBAConfig, kp_cfg, lam0=None, stall0=
     sig_t = kp_noise_sigmas(prob.kp_sr_t, kp_cfg.sigma_r, kp_cfg.alpha_bw_deg)
     err0 = _ba_error(prob.poses0, prob.lm0, prob, kp_cfg, cfg.huber_delta)
     poses, lms, err = prob.poses0, prob.lm0, err0
+    segs = kp_segments(prob)
     lam = torch.tensor(1e-4 if lam0 is None else float(lam0), dtype=dtype, device=dev)
     stall = 0 if stall0 is None else int(stall0)
     k = cg_total = 0
     while k < cfg.max_iters and stall < 2:
-        poses, lms, err2, lam, cg_k = _trial(poses, lms, err, lam, prob, sig_s, sig_t, cfg, kp_cfg, kind,
+        poses, lms, err2, lam, cg_k = _trial(poses, lms, err, lam, prob, segs, sig_s, sig_t, cfg, kp_cfg, kind,
                                              k_direct_cols)
         improved = bool((err - err2) > 1e-6 * torch.clamp(err, min=1e-30))
         err = err2
@@ -455,7 +461,8 @@ def ba_pose_marginals(prob: BAProblem, poses: se3.Pose3, lms: torch.Tensor, cfg:
     eye6 = torch.eye(6, dtype=dtype, device=dev)
     sig_s = kp_noise_sigmas(prob.kp_sr_s, kp_cfg.sigma_r, kp_cfg.alpha_bw_deg)
     sig_t = kp_noise_sigmas(prob.kp_sr_t, kp_cfg.sigma_r, kp_cfg.alpha_bw_deg)
-    nb = _Normal(*[x.to(dtype) for x in _normal_blocks(poses, lms, prob, sig_s, sig_t, cfg.huber_delta)])
+    nb = _Normal(*[x.to(dtype) for x in _normal_blocks(poses, lms, prob, sig_s, sig_t, cfg.huber_delta,
+                                                       kp_segments(prob))])
     L_ll = _cholesky_or_nan(nb.H_ll + 1e-6 * torch.eye(3, dtype=dtype, device=dev))
     T_diag = nb.D_p + 1e-6 * eye6
     T_diag[0] = eye6

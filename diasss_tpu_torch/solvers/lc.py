@@ -70,11 +70,12 @@ def _lc_residual(state: LCState, Tp_s, Ts, Tp_st, sig_odo, sig_kp1, sig_kp2, m1,
     return torch.cat([r_odo, r_kp1, r_kp2], dim=-1)
 
 
-def _solve_batch(pair, row_s, row_t, g_s, g_t, alt_s, alt_t, gras_t, n_bins: int,
+def _solve_batch(pair, row_s, row_t, g_s, g_t, alt_s, alt_t, gras_t, n_bins,
                 kp_cfg: KeypointNoiseConfig, cfg: LoopClosureConfig):
     """The JAX package's per-correspondence ``_solve_one``, over a batch of K
     correspondences: pair (K, 7), DR rows (K, 6), geo (K, 2), altitudes (K,),
-    target ground-range tables (K, G)."""
+    target ground-range tables (K, G), the source frame's bin count (an int
+    or (K,))."""
     dtype, dev = row_s.dtype, row_s.device
     K = pair.shape[0]
     bin_t = pair[:, 4].to(torch.int64)
@@ -162,18 +163,27 @@ def loop_closing_tfs_stacked(
     geo_all: torch.Tensor,  # (F, N, M, 2)
     alts_all: torch.Tensor,  # (F, N)
     gras_all: torch.Tensor,  # (F, G)
-    n_bins: int,
+    n_bins,  # int, or (F,) one bin count per frame
     kp_cfg: KeypointNoiseConfig = KeypointNoiseConfig(),
     cfg: LoopClosureConfig = LoopClosureConfig(),
 ) -> LCResult:
     """Whole-survey loop-closure solve: every correspondence of every frame
-    pair in one batch (per-frame inputs gathered on the device)."""
+    pair in one batch (per-frame inputs gathered on the device).
+
+    On a survey whose lines differ in bin count, ``n_bins`` holds each
+    frame's count, and ``dr_all`` / ``geo_all`` / ``alts_all`` are padded to
+    the longest ping and bin axes.  Each correspondence takes its source
+    frame's bin count and its target frame's ground-range table, as the JAX
+    package's per-pair solve does; a table shorter than ``G`` is padded with
+    its last entry, which is what the JAX package's clamped read of a short
+    table returns."""
     id_s, id_t = pairs[:, 0].to(torch.int64), pairs[:, 3].to(torch.int64)
     bin_s, bin_t = pairs[:, 1].to(torch.int64), pairs[:, 4].to(torch.int64)
     sf, tf = src_frame.to(torch.int64), tgt_frame.to(torch.int64)
     out = _solve_batch(
         pairs, dr_all[sf, id_s], dr_all[tf, id_t], geo_all[sf, id_s, bin_s], geo_all[tf, id_t, bin_t],
-        alts_all[sf, id_s], alts_all[tf, id_t], gras_all[tf], n_bins, kp_cfg, cfg,
+        alts_all[sf, id_s], alts_all[tf, id_t], gras_all[tf],
+        n_bins[sf] if isinstance(n_bins, torch.Tensor) else n_bins, kp_cfg, cfg,
     )
     return _result(out, valid)
 

@@ -20,7 +20,7 @@ not-to-port list and raises.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -30,6 +30,7 @@ from ..config import PoseGraphConfig
 
 from ..factors.between import between_residual
 from ..geometry import se3
+from ..segments import Segments, chain_sum, segments
 
 MAX_DIRECT_LC = 1024
 # CG iterations between two host reads of the convergence flag; past
@@ -122,30 +123,38 @@ def _build_normal_terms(poses: se3.Pose3, graph: PoseGraph):
     return idx_i, idx_j, r * w, Ji * w[..., None], Jj * w[..., None]
 
 
-def _segment_sum(x: torch.Tensor, idx: torch.Tensor, P: int) -> torch.Tensor:
-    return torch.zeros((P,) + x.shape[1:], dtype=x.dtype, device=x.device).index_add_(0, idx, x)
+def factor_segments(graph: PoseGraph, P: int) -> Tuple[Segments, Segments]:
+    """The segment plans of every factor's source and target pose, in the
+    order of :func:`_build_normal_terms` (odometry factors, then loop
+    closures); one pair per solve."""
+    ar = torch.arange(P, device=graph.lc_i.device)
+    return segments(torch.cat([ar[:-1], graph.lc_i]), P), segments(torch.cat([ar[1:], graph.lc_j]), P)
 
 
-def _gradient_and_diag(idx_i, idx_j, r, Ji, Jj, P: int):
+def _factor_sum(segs, xi: torch.Tensor, xj: torch.Tensor) -> torch.Tensor:
+    """(P, ...) sums of per-factor terms at each factor's two poses: ``xi``
+    at its source pose, ``xj`` at its target pose."""
+    return segs[0].sum(xi) + segs[1].sum(xj)
+
+
+def _gradient_and_diag(segs, r, Ji, Jj):
     """g = J^T r and the block diagonal of H = J^T J, with pose 0 fixed."""
-    gi = (Ji.transpose(-1, -2) @ r[..., None])[..., 0]
-    gj = (Jj.transpose(-1, -2) @ r[..., None])[..., 0]
-    g = _segment_sum(gi, idx_i, P) + _segment_sum(gj, idx_j, P)
-    D = _segment_sum(Ji.transpose(-1, -2) @ Ji, idx_i, P) + _segment_sum(Jj.transpose(-1, -2) @ Jj, idx_j, P)
+    Ji_t, Jj_t = Ji.transpose(-1, -2), Jj.transpose(-1, -2)
+    g = _factor_sum(segs, (Ji_t @ r[..., None])[..., 0], (Jj_t @ r[..., None])[..., 0])
+    D = _factor_sum(segs, Ji_t @ Ji, Jj_t @ Jj)
     g[0] = 0.0
     D[0] = torch.eye(6, dtype=D.dtype, device=D.device)
     return g, D
 
 
-def _odometry_chain(idx_i, idx_j, Ji, Jj, P: int):
+def _odometry_chain(Ji, Jj, P: int):
     """The odometry factors' block-tridiagonal Hessian, gauge-fixed: the
     couplings ``U`` (P-1, 6, 6) with ``U[0] = 0`` and the diagonal blocks
     (P, 6, 6) with the identity at pose 0."""
     Ji_o, Jj_o = Ji[: P - 1], Jj[: P - 1]
     U = Ji_o.transpose(-1, -2) @ Jj_o
     U[0] = 0.0
-    D_odo = _segment_sum(Ji_o.transpose(-1, -2) @ Ji_o, idx_i[: P - 1], P) + _segment_sum(
-        Jj_o.transpose(-1, -2) @ Jj_o, idx_j[: P - 1], P)
+    D_odo = chain_sum(Ji_o.transpose(-1, -2) @ Ji_o, Jj_o.transpose(-1, -2) @ Jj_o)
     D_odo[0] = torch.eye(6, dtype=D_odo.dtype, device=D_odo.device)
     return U, D_odo
 
@@ -162,14 +171,15 @@ def woodbury_columns(cols_i: torch.Tensor, cols_j: torch.Tensor, idx_i: torch.Te
                      P: int) -> torch.Tensor:
     """Low-rank columns ``V`` (P, 6, c F) of F factors: factor f's column
     block (6, c) ``cols_i[f]`` sits at pose ``idx_i[f]`` and ``cols_j[f]`` at
-    ``idx_j[f]``.  Built by a scatter into zeros (``index_put_`` with
-    accumulation); the JAX package builds the same values by a one-hot
-    product, because a scatter with traced indices is slow on a TPU."""
+    ``idx_j[f]``.  Built by two scatters into zeros, each to distinct
+    (pose, factor) slots, so no two rows ever add into one slot at once; the
+    JAX package builds the same values by a one-hot product, because a
+    scatter with traced indices is slow on a TPU."""
     F_, _, c = cols_i.shape
     ar = torch.arange(F_, device=cols_i.device)
     V = torch.zeros((P, F_, 6, c), dtype=cols_i.dtype, device=cols_i.device)
-    V.index_put_((idx_i, ar), cols_i, accumulate=True)
-    V.index_put_((idx_j, ar), cols_j, accumulate=True)
+    V[idx_i, ar] = cols_i
+    V[idx_j, ar] = V[idx_j, ar] + cols_j
     return V.permute(0, 2, 1, 3).reshape(P, 6, c * F_)
 
 
@@ -198,7 +208,7 @@ def _cholesky_or_nan(A: torch.Tensor) -> torch.Tensor:
     return torch.where((info != 0).reshape(info.shape + (1, 1)), float("nan"), L)
 
 
-def _direct_lm_step(graph, idx_i, idx_j, Ji, Jj, g, D, lam, P: int, L_lc: int):
+def _direct_lm_step(graph, Ji, Jj, g, D, lam, P: int, L_lc: int):
     """Exact damped-LM step (P, 6) for damping ``lam`` — the JAX package's
     ``_direct_lm_step_multi`` for one damping value (its damping sweep is on
     ROADMAP's not-to-port list).
@@ -206,32 +216,42 @@ def _direct_lm_step(graph, idx_i, idx_j, Ji, Jj, g, D, lam, P: int, L_lc: int):
     ``H + lam*blockdiag(H) = T' + V V^T``: ``T'`` (odometry chain + damping)
     is solved by multi-RHS cyclic reduction, the loop-closure columns ``V``
     (6 per factor) are folded in by Woodbury with one (6L, 6L) Cholesky.
-    Couplings to pose 0 are zeroed so ``delta[0] == 0`` exactly."""
+    Couplings to pose 0 are zeroed so ``delta[0] == 0`` exactly.
+
+    Both solves run in float64 from the float32 blocks, and the step is
+    returned in float32.  An odometry chain's Hessian is a 1-D Laplacian
+    whose condition grows like P^2 as the damping falls: on a 12,000-pose
+    chain at the damping floor a float32 reduction's step lies 30% of its
+    scale away from the float64 solve (tests/test_torch_solvers.py), and the
+    LM stalls away from the fixed point the JAX package reaches with its
+    Thomas scan."""
     from .lm import cholesky_solve_or_nan
     from .tridiag import solve_block_tridiag_multi
 
-    dtype, dev = D.dtype, D.device
+    dtype, dev = torch.float64, D.device
     eye6 = torch.eye(6, dtype=dtype, device=dev)
-    U, D_odo = _odometry_chain(idx_i, idx_j, Ji, Jj, P)
-    T_diag = D_odo + lam * D + 1e-6 * eye6
+    Ji, Jj = Ji.to(dtype), Jj.to(dtype)
+    U, D_odo = _odometry_chain(Ji, Jj, P)
+    T_diag = D_odo + lam.to(dtype) * D.to(dtype) + 1e-6 * eye6
+    rhs = (-g).to(dtype)[:, :, None]
     if L_lc == 0:
-        delta = solve_block_tridiag_multi(T_diag, U, -g[..., None])[..., 0]
+        delta = solve_block_tridiag_multi(T_diag, U, rhs)[..., 0]
         delta[0] = 0.0
-        return delta
+        return delta.to(D.dtype)
 
     cols_i, cols_j = _lc_columns(graph, Ji, Jj, P)
     V = woodbury_columns(cols_i, cols_j, graph.lc_i, graph.lc_j, P)
-    W = solve_block_tridiag_multi(T_diag, U, torch.cat([(-g)[:, :, None], V], dim=2))
+    W = solve_block_tridiag_multi(T_diag, U, torch.cat([rhs, V], dim=2))
     w0, Wv = W[:, :, 0], W[:, :, 1:]
     C = columns_t(cols_i, cols_j, graph.lc_i, graph.lc_j, Wv) + torch.eye(6 * L_lc, dtype=dtype, device=dev)
     c0 = columns_t(cols_i, cols_j, graph.lc_i, graph.lc_j, w0[..., None])[:, 0]
     y = cholesky_solve_or_nan(0.5 * (C + C.T), c0)
     delta = w0 - Wv @ y
     delta[0] = 0.0
-    return delta
+    return delta.to(D.dtype)
 
 
-def _make_matvec(idx_i, idx_j, Ji, Jj, P: int, lam, D):
+def _make_matvec(idx_i, idx_j, segs, Ji, Jj, lam, D):
     """``v -> (H + lam*blockdiag(D)) v`` with H applied factor-wise (gather,
     batched 6x6 products, segment sums); pose 0 is the gauge, its row is
     the identity on a zeroed block."""
@@ -240,8 +260,7 @@ def _make_matvec(idx_i, idx_j, Ji, Jj, P: int, lam, D):
     def matvec(v):  # (P, 6)
         v = torch.cat([torch.zeros_like(v[:1]), v[1:]])
         a = (Ji @ v[idx_i][..., None] + Jj @ v[idx_j][..., None])[..., 0]
-        out = _segment_sum((Ji_t @ a[..., None])[..., 0], idx_i, P) + _segment_sum(
-            (Jj_t @ a[..., None])[..., 0], idx_j, P)
+        out = _factor_sum(segs, (Ji_t @ a[..., None])[..., 0], (Jj_t @ a[..., None])[..., 0])
         out = out + lam * (D @ v[..., None])[..., 0]
         out[0] = 0.0
         return out
@@ -291,7 +310,7 @@ def _pcg(matvec, b: torch.Tensor, precond, tol: float, max_iters: int, chunk: in
     return x, n_iters
 
 
-def _pcg_lm_step(kind: str, idx_i, idx_j, Ji, Jj, g, D, lam, P: int, cfg: PoseGraphConfig):
+def _pcg_lm_step(kind: str, idx_i, idx_j, segs, Ji, Jj, g, D, lam, P: int, cfg: PoseGraphConfig):
     """Damped-LM step by PCG on the factor-wise Hessian; returns (delta, CG
     iterations).  Preconditioners of the damped diagonal ``Dp``: its 6x6
     blocks (``"jacobi"``), or the odometry chain on ``Dp`` cut into segments
@@ -318,7 +337,7 @@ def _pcg_lm_step(kind: str, idx_i, idx_j, Ji, Jj, g, D, lam, P: int, cfg: PoseGr
             def precond(v):
                 return solve_block_tridiag_segmented(Dp, U, v, cfg.tridiag_segment)
 
-    matvec = _make_matvec(idx_i, idx_j, Ji, Jj, P, lam, D)
+    matvec = _make_matvec(idx_i, idx_j, segs, Ji, Jj, lam, D)
     return _pcg(matvec, -g, precond, cfg.cg_tol, cfg.cg_max_iters)
 
 
@@ -343,6 +362,7 @@ def solve_pose_graph(graph: PoseGraph, cfg: PoseGraphConfig = PoseGraphConfig(),
     dtype, dev = graph.poses0.t.dtype, graph.poses0.t.device
     rel_exit_tol = 1e-6
     not_gauge = torch.arange(P, device=dev) != 0
+    segs = factor_segments(graph, P)
 
     poses = graph.poses0
     err0 = graph_error(poses, graph)
@@ -352,12 +372,12 @@ def solve_pose_graph(graph: PoseGraph, cfg: PoseGraphConfig = PoseGraphConfig(),
     k = cg_total = 0
     while k < cfg.max_gn_iters and stall < 2:
         idx_i, idx_j, r, Ji, Jj = _build_normal_terms(poses, graph)
-        g, D = _gradient_and_diag(idx_i, idx_j, r, Ji, Jj, P)
+        g, D = _gradient_and_diag(segs, r, Ji, Jj)
         lam = torch.clamp(lam, 1e-9, 1e6)
         if kind == "direct":
-            delta = _direct_lm_step(graph, idx_i, idx_j, Ji, Jj, g, D, lam, P, L_lc)
+            delta = _direct_lm_step(graph, Ji, Jj, g, D, lam, P, L_lc)
         else:
-            delta, cg_k = _pcg_lm_step(kind, idx_i, idx_j, Ji, Jj, g, D, lam, P, cfg)
+            delta, cg_k = _pcg_lm_step(kind, idx_i, idx_j, segs, Ji, Jj, g, D, lam, P, cfg)
             cg_total += cg_k
         cand = se3.where(not_gauge, se3.retract(poses, delta), poses)
         new_err = graph_error(cand, graph)
@@ -393,9 +413,9 @@ def pg_pose_marginals(graph: PoseGraph, poses: se3.Pose3) -> torch.Tensor:
     P = poses.t.shape[0]
     L = int(graph.lc_i.shape[0])
     dtype, dev = torch.float64, poses.t.device
-    idx_i, idx_j, _, Ji, Jj = _build_normal_terms(poses, graph)
+    _, _, _, Ji, Jj = _build_normal_terms(poses, graph)
     Ji, Jj = Ji.to(dtype), Jj.to(dtype)
-    U, D_odo = _odometry_chain(idx_i, idx_j, Ji, Jj, P)
+    U, D_odo = _odometry_chain(Ji, Jj, P)
     T_diag = D_odo + 1e-6 * torch.eye(6, dtype=dtype, device=dev)
     T_diag[0] = torch.eye(6, dtype=dtype, device=dev)
     cov = block_tridiag_selected_inverse(T_diag, U)

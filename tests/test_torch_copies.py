@@ -1,6 +1,6 @@
 """The port's own copies of the JAX package's numpy-only modules
-(``config``, ``pairs``, ``synthetic``, ``io``, ``dumps``, ``viz.write_png``)
-against the originals.  Tolerance: none — the copies run the same numpy code, so every
+(``config``, ``pairs``, ``synthetic``, ``io``, ``dumps``, ``viz``, the native
+reader's C++ source) against the originals.  Tolerance: none — the copies run the same numpy code, so every
 value, array and written byte is identical.
 """
 
@@ -96,7 +96,8 @@ def test_save_and_load_survey_identical(survey, tmp_path):
     keys = ("image", "pose", "altitude", "groundrange", "annotation")
     a = io.load_input_data(*[fa[k] for k in keys])
     b = jio.load_input_data(*[fb[k] for k in keys], use_native=False)
-    for f in a._fields:
+    assert a.reader == "native"
+    for f in b._fields:
         assert len(getattr(a, f)) == len(getattr(b, f)) == 4
         for x, y in zip(getattr(a, f), getattr(b, f)):
             np.testing.assert_array_equal(x, y)
@@ -153,3 +154,36 @@ def test_prefetch_iter_copy_behaves_as_the_original():
     for fn in (prefetch_iter, jax_prefetch_iter):
         with pytest.raises(ValueError, match="unreadable line"):
             list(fn([thunks[0], broken, thunks[1]]))
+
+
+def test_match_rendering_bytes_identical(tmp_path):
+    """``draw_matches_image`` (two frames of different widths) and
+    ``show_annos`` write the same PNG bytes as the JAX package's."""
+    rng = np.random.default_rng(5)
+    img1 = rng.integers(0, 256, (40, 64)).astype(np.uint8)
+    img2 = rng.integers(0, 256, (30, 48)).astype(np.uint8)
+    pts1 = rng.uniform(-5, 70, (12, 2))
+    pts2 = rng.uniform(-5, 50, (12, 2))
+    for mod, name in ((viz, "port"), (jviz, "jax")):
+        mod.draw_matches_image(img1, img2, pts1, pts2, str(tmp_path / f"{name}_m.png"), max_matches=10)
+        annos = np.array([[0, 1, 5, 10, 7, 20, 0], [0, 2, 3, 3, 4, 4, 0], [0, 1, 30, 60, 25, 40, 0]])
+        mod.show_annos(1, img1, img2, annos, str(tmp_path / f"{name}_a.png"))
+    for kind in ("m", "a"):
+        assert (tmp_path / f"port_{kind}.png").read_bytes() == (tmp_path / f"jax_{kind}.png").read_bytes()
+
+
+def test_native_reader_source_identical_but_its_provenance_path():
+    """The port's ``io_native.cpp`` is the JAX package's, byte for byte,
+    except that its header comment names the reference's source file
+    without the absolute path of the machine it was read on."""
+    import diasss_tpu.native
+    import diasss_tpu_torch.native
+
+    ours, ref = diasss_tpu_torch.native.SOURCE, os.path.join(os.path.dirname(diasss_tpu.native.__file__),
+                                                             "io_native.cpp")
+    with open(ours, "rb") as a, open(ref, "rb") as b:
+        a, b = a.read().split(b"\n"), b.read().split(b"\n")
+    differ = [k for k, (x, y) in enumerate(zip(a, b)) if x != y]
+    assert len(a) == len(b) > 100 and differ == [3]
+    tail = b"src/util/util.cpp:86-128).  Multi-megabyte waterfall images"
+    assert a[3] == b"// (the reference's " + tail and b[3].startswith(b"// (/") and b[3].endswith(b"reference/" + tail)

@@ -102,7 +102,7 @@ def test_cli_reports_marginals_and_writes_the_mosaic(survey_dirs, tmp_path, esti
     assert main(survey_dirs + ["--estimator", estimator, "--metrics", str(metrics), "--out", str(out),
                                "--mosaic", str(png)]) == 0
     m = json.loads(metrics.read_text())
-    assert m["counters"] == {"solver_direct_solves": 1} and "pose_marginals" in m["timings"]
+    assert m["counters"] == {"eval_stacked_pairs": 1, "solver_direct_solves": 1} and "pose_marginals" in m["timings"]
     assert len(m["pose_sigma_mean"]) == 6 and all(v > 0 for v in m["pose_sigma_mean"])
     sig = np.loadtxt(out / "est_pose_sigmas_all.txt")
     assert sig.shape == (240, 6) and np.all(sig[0] == 0) and np.all(sig[1:] > 0)

@@ -1,7 +1,9 @@
 """The port imports neither JAX nor the JAX package (on the annotation,
 detected and automatic paths with the pose marginals and the mosaic, one
-online arrival, a checkpointed solve and the diagnostics), and the chip
-smoke test has no CPU path.
+online arrival, a checkpointed solve and the diagnostics, the automatic
+path and an online arrival on lines of different bin counts, the native
+reader and the pipelined loader, the CLI with ``--trace``, and the match
+rendering), and the chip smoke test has no CPU path.
 
 Both run in fresh interpreters: this test process has imported jax already
 (tests/conftest.py).
@@ -60,6 +62,33 @@ prob = full_ba.build_ba_problem(frames, _assemble_pairs(frames, None, pairs, aut
 with tempfile.TemporaryDirectory() as tmp:
     poses, _, info = solve_full_ba_checkpointed(prob, auto.full_ba, auto.kp_noise, os.path.join(tmp, "ck.npz"), chunk=2)
 assert determinism_report(lambda: full_ba.solve_full_ba(prob, auto.full_ba, auto.kp_noise)[0])["deterministic"]
+
+# lines of different bin counts: line 1 cropped by 16 bins on each side
+import numpy as np
+items = [(l.img_id, l.image[:, 16:-16] if k == 1 else l.image, l.dr_poses, l.altitudes,
+          l.ground_ranges[:112] if k == 1 else l.ground_ranges, np.zeros((0, 7), np.int64))
+         for k, l in enumerate(survey.lines)]
+mixed = build_keyframes_batch(items, device="cpu")
+assert [int(f.raw.shape[1]) for f in mixed] == [256, 224]
+assert run_slam(mixed, auto, gt_rows_list=gt).ate_est is not None
+assert check_finite(OnlineSlam(auto, device="cpu").add_frame(mixed[1]), "mixed online") == []
+
+import diasss_tpu_torch.native
+from diasss_tpu_torch.cli import main as cli_main
+from diasss_tpu_torch.io import save_survey
+from diasss_tpu_torch.parallel.prefetch import load_keyframes_pipelined
+from diasss_tpu_torch.viz import draw_matches_image, show_annos
+
+with tempfile.TemporaryDirectory() as tmp:
+    folders = save_survey(survey, tmp)
+    keys = ("image", "pose", "altitude", "groundrange", "annotation")
+    load = load_keyframes_pipelined(*[folders[k] for k in keys], detector_cfg=auto.detector, device="cpu")
+    assert load.reader == "native" and len(load.feats) == 2
+    args = [a for k in keys for a in (f"--{k}", folders[k])]
+    assert cli_main(args + ["--device", "cpu", "--trace", os.path.join(tmp, "trace"), "--no-eval2"]) == 0
+    assert os.path.exists(os.path.join(tmp, "trace", "trace.json"))
+    img = frames[0].norm.numpy()
+    show_annos(1, img, frames[1].norm.numpy(), survey.lines[0].annos, os.path.join(tmp, "annos.png"))
 leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
 print("JAX_MODULES", leaked)
 pkg = sorted(m for m in sys.modules if m == "diasss_tpu" or m.startswith("diasss_tpu."))

@@ -15,8 +15,16 @@ Tolerances, and why:
   held to the port's own batch run with ``rematch_iters=0``, within the JAX
   package's own bound for the same comparison
   (``tests/test_online.py:62-85``): ``|ATE_online - ATE_batch| < 0.1 *
-  max(ATE_DR, 1)``.  The JAX package's online full-BA solve is not run
-  here: it takes 85 s per test on the CPU.
+  max(ATE_DR, 1)``;
+* the unwindowed full-BA stream on annotations against the JAX package's
+  ``OnlineSlam`` after every arrival, the JAX side on its CPU default
+  (PCG; its direct BA compiles for minutes under xdist, as
+  test_torch_full_ba.py says): the same correspondences, 1e-3 m (measured
+  8.2e-5 m);
+* the automatic stream against the JAX package's ``OnlineSlam`` after every
+  arrival, both on the JAX detector's keypoints: the same correspondences,
+  0.02 m (the automatic profile's bound, test_torch_auto.py; measured
+  3.7e-4 m: the JAX package's CPU dense matcher takes its lattice branch).
 """
 
 import dataclasses
@@ -27,7 +35,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity_helpers import jax_and_port_frames, port_cfg, small_survey
+from torch_parity_helpers import JaxRng, jax_and_port_frames, port_cfg, small_survey
 from diasss_tpu import online as jonline
 from diasss_tpu.config import PipelineConfig, PoseGraphConfig
 from diasss_tpu.geometry import se3 as jse3
@@ -184,6 +192,48 @@ def test_online_automatic_stream_matches_the_batch_run(monkeypatch):
                                              np.concatenate(gt))
     assert batch.counters["match_stacked_pairs"] == 3
     assert abs(ate_online - batch.ate_est) < 0.1 * max(ate_dr, 1.0), (ate_online, batch.ate_est, ate_dr)
+
+
+def test_full_ba_stream_matches_jax_after_every_arrival():
+    from diasss_tpu.synthetic import make_survey
+
+    survey = make_survey(n_lines=2, n_pings=60, n_bins=256, n_landmarks=60, n_tie_lines=1, seed=3)
+    jf, tf = jax_and_port_frames(survey)
+    cfg = PipelineConfig(min_overlap=0.1, estimator="full_ba")
+    j = jonline.OnlineSlam(cfg)
+    p = online.OnlineSlam(port_cfg(cfg), device="cpu")
+    for k, (a, b) in enumerate(zip(jf, tf)):
+        jt, tt = np.asarray(j.add_frame(a).t), p.add_frame(b).t.numpy()
+        assert tt.shape == jt.shape == (60 * (k + 1), 3)
+        assert p.state.n_lc == j.state.n_lc
+        np.testing.assert_allclose(tt, jt, atol=1e-3)
+    assert p.state.n_lc > 0
+
+
+def test_automatic_stream_matches_jax_after_every_arrival(monkeypatch):
+    """Both streams detect nothing themselves here: the port's arrival takes
+    the JAX detector's keypoints of the same frame (the detectors differ in
+    a few higher-level keypoints, test_torch_features.py)."""
+    from diasss_tpu.config import automatic_config as jax_automatic_config
+    from diasss_tpu.features import detect_features as jax_detect
+    from diasss_tpu.synthetic import make_survey
+    import diasss_tpu_torch.features
+
+    torch.set_num_threads(2)
+    cfg = jax_automatic_config()
+    cfg = dataclasses.replace(cfg, detector=dataclasses.replace(cfg.detector, n_features=300))
+    survey = make_survey(n_lines=2, n_pings=150, n_bins=256, n_landmarks=150, seed=11, drift_xy=0.004)
+    jf, tf = jax_and_port_frames(survey)
+    feats = iter([to_torch(jax_detect(f.norm, f.mask, cfg.detector), device="cpu") for f in jf])
+    monkeypatch.setattr(diasss_tpu_torch.features, "detect_features", lambda *args: next(feats))
+    j = jonline.OnlineSlam(cfg)
+    p = online.OnlineSlam(port_cfg(cfg), device="cpu", rng=JaxRng())
+    for k, (a, b) in enumerate(zip(jf, tf)):
+        jt, tt = np.asarray(j.add_frame(a).t), p.add_frame(b).t.numpy()
+        assert tt.shape == jt.shape == (150 * (k + 1), 3)
+        assert p.state.n_lc == j.state.n_lc
+        np.testing.assert_allclose(tt, jt, atol=0.02)
+    assert p.state.n_lc > 0 and p.counters == {"match_perpair_pairs": 1}
 
 
 @pytest.mark.parametrize("kwargs, exc, match", [

@@ -19,7 +19,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity_helpers import JaxRng, jax_and_port_frames, port_cfg, small_survey
+from torch_parity_helpers import JaxRng, crop_lines, frame_items, jax_and_port_frames, port_cfg, small_survey
 from diasss_tpu.config import DetectorConfig, FullBAConfig, MatcherConfig, PipelineConfig, PoseGraphConfig
 from diasss_tpu.features import detect_features as jax_detect
 from diasss_tpu.pipeline import run_slam as jax_run_slam
@@ -66,7 +66,7 @@ def test_annotation_run_matches_jax(survey, frames, tmp_path):
         assert _read(tmp_path / "port" / name) == _read(tmp_path / "jax" / name)
     np.testing.assert_allclose(np.loadtxt(tmp_path / "port" / "ini_lm_errors.txt"),
                                np.loadtxt(tmp_path / "jax" / "ini_lm_errors.txt"), atol=1e-5)
-    assert ours.counters == {"solver_direct_solves": 1}
+    assert ours.counters == {"eval_stacked_pairs": len(ref.pair_ids), "solver_direct_solves": 1}
 
 
 @pytest.fixture(scope="module")
@@ -110,22 +110,37 @@ def test_detected_run_through_port_detector(detected_runs):
     (PipelineConfig(detector=DetectorConfig(descriptor="geo_patch", n_features=300),
                     matcher=MatcherConfig(desc_metric="ncc", cross_check=True, scc_mode="xy"),
                     pose_graph=PoseGraphConfig(use_anno=False, preconditioner="direct")), "A11"),
+    (PipelineConfig(), "A8"),
 ])
-def test_unported_options_raise_naming_roadmap(frames, cfg, item):
+def test_unported_options_raise_naming_roadmap(survey, frames, cfg, item):
     """Options still unported raise, naming their ROADMAP item; those ported
     since (A9: the pose marginals, A7: the PCG family, A11: geo-patch
-    descriptors attached for the keypoint matcher) run."""
+    descriptors attached for the keypoint matcher, A8: lines of different
+    bin counts) run."""
     if item in ("A7", "A9"):
         result = run_slam(frames[1], port_cfg(cfg), rng=JaxRng())
         assert torch.isfinite(result.poses.t).all()
-        assert result.counters == {f"solver_{'dense_seg' if item == 'A7' else 'direct'}_solves": 1}
+        assert result.counters == {"eval_stacked_pairs": len(result.pair_ids),
+                                   f"solver_{'dense_seg' if item == 'A7' else 'direct'}_solves": 1}
         assert (result.pose_sigmas is not None) == (item == "A9")
         return
     if item == "A11":
         result = run_slam(frames[1], port_cfg(cfg), rng=JaxRng(), run_eval2=False)
         assert torch.isfinite(result.poses.t).all()
-        assert result.counters == {"match_stacked_pairs": len(result.pair_ids), "solver_direct_solves": 1}
+        assert result.counters == {"match_stacked_pairs": len(result.pair_ids),
+                                   "eval_stacked_pairs": len(result.pair_ids), "solver_direct_solves": 1}
         assert sum(int(r.valid.sum()) for r in result.lc_results.values()) > 0
+        return
+    if item == "A8":
+        from diasss_tpu_torch.frame import build_keyframes_batch
+
+        mixed = crop_lines(survey, {0: 32})
+        tf = build_keyframes_batch(frame_items(mixed), device="cpu")
+        assert [int(f.raw.shape[1]) for f in tf] == [448, 512, 512]
+        result = run_slam(tf, port_cfg(cfg), gt_rows_list=[l.gt_poses for l in mixed.lines], rng=JaxRng())
+        assert torch.isfinite(result.poses.t).all() and len(result.pair_ids) > 0
+        assert result.counters == {"eval_stacked_pairs": len(result.pair_ids), "solver_direct_solves": 1}
+        assert result.ate_est <= result.ate_dr
         return
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         run_slam(frames[1], port_cfg(cfg))
@@ -152,7 +167,7 @@ def test_cli_runs_and_writes_metrics(survey_dirs, tmp_path):
     m = json.loads(metrics.read_text())
     assert m["n_frames"] == 2 and m["device"] == "cpu"
     assert m["ate_est"] is not None and np.isfinite(m["ate_est"])
-    assert m["counters"] == {"solver_direct_solves": 1}
+    assert m["counters"] == {"eval_stacked_pairs": 1, "solver_direct_solves": 1}
     assert (tmp_path / "out" / "est_poses_all.txt").exists()
     assert (tmp_path / "out" / "est_poses.txt").exists()  # two lines: the pairwise dumps too
 
@@ -194,3 +209,18 @@ def test_cli_rejects_unported_flags(survey_dirs, capsys, flags, item, tmp_path, 
         main(survey_dirs + flags)
     assert exc.value.code == 2
     assert f"ROADMAP {item}" in capsys.readouterr().err
+
+
+def test_cli_trace_writes_a_chrome_trace_and_reports_the_reader(survey_dirs, tmp_path, capsys):
+    """``--trace DIR``: a ``torch.profiler`` Chrome trace of the solve (CPU
+    activity here; on the card also CUDA kernels, chip_smoke.py); the load
+    line names the reader that ran."""
+    from diasss_tpu_torch.cli import main
+
+    assert main(survey_dirs + ["--trace", str(tmp_path / "trace"), "--no-eval2"]) == 0
+    out = capsys.readouterr().out
+    assert "pipelined" in out and "reader: native" in out
+    trace = json.loads((tmp_path / "trace" / "trace.json").read_text())
+    events = trace["traceEvents"]
+    assert any(e.get("cat") == "cpu_op" for e in events)
+    assert any("solve" in e.get("name", "") or "linalg" in e.get("name", "") for e in events)
