@@ -60,10 +60,11 @@ Phases (every one asserts; nothing is caught):
    the poses finite after every arrival, the final ATE below DR and within
    ``0.1 * max(ATE_DR, 1)`` of a batch run of the same keyframes with
    ``rematch_iters=0``;
-10. online windows: the 12000-pose annotation survey streamed two-stage with
-    ``window_frames=4`` and the 4200-pose full-BA survey with
-    ``window_frames=3`` (per arrival seconds, window poses, loop closures in
-    the solve; poses finite and counted);
+10. online windows: the annotation survey streamed two-stage with
+    ``window_frames=4`` (10 lines, 6000 poses: cut from 20 lines to leave
+    the multi-device phases room in the time limit) and the 4200-pose
+    full-BA survey with ``window_frames=3`` (per arrival seconds, window
+    poses, loop closures in the solve; poses finite and counted);
 11. checkpoint: the 4200-pose full-BA problem solved by
     ``solve_full_ba_checkpointed`` in chunks of 5 trials, and again resumed
     from the snapshot of its first chunk, both within 1e-3 m ATE of the
@@ -84,7 +85,25 @@ Phases (every one asserts; nothing is caught):
     temporary directory (``--device cuda --trace DIR --metrics FILE``):
     the native reader ran, the trace holds CUDA kernel events, and the
     metrics file's ATE is within 1e-3 m of an in-process run on the same
-    files.
+    files; then ``--mesh 2 --dist-backend gloo`` under torchrun (``python
+    -m torch.distributed.run --standalone --nproc-per-node 2``, both ranks
+    on the card), its metrics ATE within 1e-3 m of the same in-process run;
+15. the multi-device layer (``diasss_tpu_torch/parallel``), every line
+    labelled "N ranks sharing one H100 over gloo: not a scaling number":
+    ``[mesh nccl]``, one NCCL rank (a spawned process) checking every
+    collective against its definition on CUDA tensors, a send to itself
+    included (the only NCCL run until a host with several GPUs exists);
+    ``[mesh 4]``, four ranks spawned on cuda:0 over gloo, each cell held to
+    the one-device run of this call: annotations 12k (direct step; a
+    ``dense_seg`` pass held to the one-device ``dense_seg`` pass), full BA
+    4.2k (direct step: poses), automatic 1.6k (the data-parallel dense
+    matcher, B1 and B2 on every rank, and sequence-parallel full BA), detected
+    3k through the ring (``ring_min_kps`` at the keypoint capacity, the
+    exclusion radius at 0 on both sides: every NN decision equal to
+    ``geo_nn_search``), elastic recovery on the 12k run's pose graph
+    (ranks 2-3 out at chunk 1) and the full-BA stream with a 3-line
+    window; each with its wall beside the one-device wall and each rank's
+    peak memory; and ``multihost_check`` in two OS processes over tcp://.
 
 The repairs of this round are gated here too: the 12000-pose two-stage
 solve is not capped (its float64 direct step), two automatic passes give
@@ -128,7 +147,8 @@ B1_LARGE = (4992, 1280)  # a long waterfall as one level
 QCORR_RANDOM = ((12000, 43), (12000, 19), (2000, 43))
 MAX_LC_MARGINALS = 1024  # loop-closure factors of the marginals envelope: the direct step's limit
 PCG_ATE_GATE = {"two_stage": ("abs", 1e-2), "full_ba": ("rel", 0.05)}  # a PCG pass against the direct pass
-ONLINE_WINDOWS = {"two_stage": 4, "full_ba": 3}  # fixed-lag windows (lines) of the streamed 12k and 4.2k surveys
+ONLINE_WINDOWS = {"two_stage": 4, "full_ba": 3}  # fixed-lag windows (lines) of the streamed 6k and 4.2k surveys
+ONLINE_ANNO_LINES = 10  # the two-stage stream's lines (20 before the multi-device phases needed the time)
 CKPT_CHUNK = 5  # LM trials per checkpointed chunk
 # lines cropped on both sides (bins of line k lost per side): the automatic
 # survey's line 1 at 384 of 512 bins, the 3000-pose survey's lines 1 and 3 at
@@ -520,7 +540,7 @@ def auto_phase(dev, survey, cfg, gt, card, warm_ate):
           f"counters {json.dumps(result.counters)} solve_capped {result.solve_capped}")
     frames = build_frames(survey, dev)
     profiled("auto", lambda: auto_run(frames, cfg, gt), wall)
-    return fast_n, qcorr_n
+    return fast_n, qcorr_n, wall
 
 
 def check_poses(result, label):
@@ -562,27 +582,30 @@ def detected_phase(dev):
 
 @contextlib.contextmanager
 def solver_infos():
-    """Collect the SolveInfo / BAInfo of every global solve run inside."""
+    """Collect the SolveInfo / BAInfo of every global solve run inside, on
+    one device or sequence-parallel."""
+    from diasss_tpu_torch.parallel import seq
     from diasss_tpu_torch.solvers import full_ba, pose_graph
 
     infos = []
-    pg_entry, ba_entry = pose_graph.solve_pose_graph, full_ba.solve_full_ba
+    entries = [(pose_graph, "solve_pose_graph"), (full_ba, "solve_full_ba"), (seq, "seq_pose_graph_solve"),
+               (seq, "seq_full_ba_solve")]
+    saved = [getattr(m, name) for m, name in entries]
 
-    def pg(*args, **kwargs):
-        out = pg_entry(*args, **kwargs)
-        infos.append(out[-1])
-        return out
+    def wrap(entry):
+        def run(*args, **kwargs):
+            out = entry(*args, **kwargs)
+            infos.append(out[-1])
+            return out
+        return run
 
-    def ba(*args, **kwargs):
-        out = ba_entry(*args, **kwargs)
-        infos.append(out[-1])
-        return out
-
-    pose_graph.solve_pose_graph, full_ba.solve_full_ba = pg, ba
+    for (m, name), entry in zip(entries, saved):
+        setattr(m, name, wrap(entry))
     try:
         yield infos
     finally:
-        pose_graph.solve_pose_graph, full_ba.solve_full_ba = pg_entry, ba_entry
+        for (m, name), entry in zip(entries, saved):
+            setattr(m, name, entry)
 
 
 def sigma_summary(result, label) -> str:
@@ -654,6 +677,7 @@ def annotation_phase(dev, card, survey_kw, cfg, label, profile=False, variants=(
     run_slam(build_frames(survey, dev), cfg, gt_rows_list=gt, run_eval2=False)  # warm-up
     frames = build_frames(survey, dev)
     result, wall, _, _ = timed_pass(frames, cfg, gt, label, card, improve)
+    result.timings["timed_pass_wall"] = wall
     if profile:
         frames = build_frames(survey, dev)
         profiled(f"{label} {int(result.poses.t.shape[0])}",
@@ -815,7 +839,8 @@ def online_auto_phase(dev, survey, cfg, gt, card):
 
 def online_window_phase(dev, card, survey_kw, cfg, window, label):
     """A survey streamed with a fixed-lag window (per arrival: seconds,
-    window poses, loop closures in the solve); returns the final ATE pair."""
+    window poses, loop closures in the solve); returns the final ATE and
+    the stream's wall."""
     from diasss_tpu_torch.online import OnlineSlam
     from diasss_tpu_torch.synthetic import make_survey
 
@@ -827,6 +852,7 @@ def online_window_phase(dev, card, survey_kw, cfg, window, label):
     ate_dr, ate_est = ate_of(frames, poses, [l.gt_poses for l in survey.lines])
     print(f"[{label}] {int(poses.t.shape[0])} poses, {len(frames)} arrivals in {wall:.3f} s, window {window} lines, "
           f"ATE DR/EST {ate_dr:.4f}/{ate_est:.4f} m on {card}")
+    return ate_est, wall
 
 
 def checkpoint_phase(dev, card):
@@ -1070,6 +1096,7 @@ def cli_phase(dev, card, survey_kw, crops):
         load = load_keyframes_pipelined(*[folders[k] for k in keys], device=dev)
         gt = [np.loadtxt(os.path.join(gt_dir, n)) for n in sorted(os.listdir(gt_dir))]
         ref = run_slam(load.frames, PipelineConfig(), gt_rows_list=gt, run_eval2=False)
+        cli_mesh_run(card, args, gt_dir, tmp, ref.ate_est)
     lines = [l for l in proc.stdout.splitlines() if l.startswith(("loaded", "  image size", "profiler trace"))]
     print(f"[cli] {' | '.join(lines)}")
     print(f"[cli] {seconds:.3f} s as a subprocess; reader {m['reader']!r}; trace: {len(events)} events, {len(kernels)} "
@@ -1079,6 +1106,501 @@ def cli_phase(dev, card, survey_kw, crops):
     check(len(kernels) >= 1, f"CLI: the trace holds no CUDA kernel event ({len(events)} events)")
     check(abs(m["ate_est"] - ref.ate_est) <= CLI_ATE_TOL,
           f"CLI: metrics ATE {m['ate_est']} against the in-process run's {ref.ate_est}")
+
+
+def cli_mesh_run(card, args, gt_dir, tmp, ref_ate):
+    """``--mesh 2`` under torchrun (``python -m torch.distributed.run``),
+    both ranks on cuda:0 over gloo, on the survey files ``args`` name; its
+    metrics ATE against the one-device in-process run's ``ref_ate``."""
+    mesh_metrics = os.path.join(tmp, "m_mesh.json")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "2", "-m",
+           "diasss_tpu_torch.cli", *args, "--gt", gt_dir, "--device", "cuda", "--mesh", "2", "--dist-backend",
+           "gloo", "--metrics", mesh_metrics, "--no-eval2"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600, cwd=os.path.dirname(os.path.abspath(__file__)))
+    seconds = time.perf_counter() - t0
+    check(proc.returncode == 0, f"CLI --mesh 2 exited {proc.returncode}: {proc.stderr[-3000:]}")
+    with open(mesh_metrics) as f:
+        mm = json.load(f)
+    rank0 = [l for l in proc.stdout.splitlines() if l.startswith(("rank 0", "SLAM solved"))]
+    print(f"[cli --mesh 2] torchrun --standalone --nproc-per-node 2, {seconds:.3f} s as a subprocess: "
+          f"{' | '.join(rank0)}; metrics ATE DR/EST {mm['ate_dr']:.4f}/{mm['ate_est']:.4f} m, in-process (one device) "
+          f"{ref_ate:.4f} m; counters {json.dumps(mm['counters'])}; {mesh_label(2)} on {card}")
+    check(abs(mm["ate_est"] - ref_ate) <= CLI_ATE_TOL and mm["counters"].get("solver_sp_direct_solves") == 1,
+          f"CLI --mesh 2: metrics ATE {mm['ate_est']} against the in-process run's {ref_ate}, {mm['counters']}")
+
+
+# ---------------------------------------------------------------------------
+# The multi-device layer (diasss_tpu_torch/parallel): ranks started with
+# spawn, all on cuda:0; the NCCL transport with one rank
+# ---------------------------------------------------------------------------
+
+MESH_N = 4
+MESH_TIMEOUT_S = 600  # the whole [mesh 4] phase; every process group also times out (distributed.TIMEOUT_S)
+
+
+def mesh_label(n: int) -> str:
+    return f"{n} ranks sharing one H100 over gloo: not a scaling number"
+
+
+MESH_LABEL = mesh_label(4)
+MESH_GATES = {"anno12k": 1e-2, "ba4k_poses": 3e-3, "ba4k_ate_rel": 0.05, "auto": 0.02, "detected": 1e-2,
+              "elastic": 2e-3, "elastic_sigma": 0.25, "elastic_error_rel": 3e-4, "online": 1e-3}
+# The elastic 12k solve against the uninterrupted 4-rank solve: ATE within
+# "elastic" (m); every pose within "elastic_sigma" of its own marginal
+# standard deviation (pg_pose_marginals at the uninterrupted poses); the
+# final error within "elastic_error_rel" relative.  Not metres: the 12k
+# chain's float32 cost is noisy at its end game (coordinates of hundreds of
+# metres), so any change of arithmetic (one device, 2 or 4 ranks) ends it
+# up to 0.12 m (0.12 sigma) and 7e-5 of the error apart; chunk boundaries on
+# the same ranks move it by 0 (gated exactly).
+
+
+def _spawn(fn, nprocs: int, args: tuple, timeout_s: float, label: str):
+    """Run ``fn(rank, *args)`` in ``nprocs`` processes started with spawn;
+    fail on any child's exception or exit code, or after ``timeout_s``
+    (every child is stopped then)."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.start_processes(fn, args=args, nprocs=nprocs, join=False, start_method="spawn")
+    deadline = time.perf_counter() + timeout_s
+    try:
+        while not ctx.join(timeout=5):
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"{label}: ranks still running after {timeout_s} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.terminate()
+                p.join(10)
+
+
+def _rank_setup(rank: int, world: int, store: str, backend: str):
+    from diasss_tpu_torch.parallel.distributed import initialize
+    from diasss_tpu_torch.parallel.shard import make_mesh
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(max(1, (os.cpu_count() or 8) // max(world, 1) // 1))
+    initialize(f"file://{store}", world, rank, backend=backend)
+    return make_mesh(world, device=torch.device("cuda", 0))
+
+
+def nccl_rank(rank: int, tmp: str):
+    """One NCCL rank: each collective against its definition on CUDA tensors."""
+    from diasss_tpu_torch.parallel import collectives as C
+    from diasss_tpu_torch.parallel.distributed import heartbeat
+
+    mesh = _rank_setup(rank, 1, os.path.join(tmp, "nccl_store"), "nccl")
+    dev = mesh.device
+    x = torch.arange(6, dtype=torch.float32, device=dev).reshape(2, 3)
+    res = {
+        "psum": (C.psum(mesh, x), x),
+        "psum_ordered": (C.psum_ordered(mesh, x), x),
+        "all_gather": (C.all_gather(mesh, x), x[None]),
+        "ppermute (self, batch_isend_irecv)": (C.ppermute(mesh, [x, x > 2], [(0, 0)])[0], x),
+        "all_to_all_single": (C.all_to_all(mesh, x[None]), x[None]),
+        "broadcast": (C.broadcast(mesh, x, 0), x),
+        "heartbeat": (torch.tensor(heartbeat(mesh)), torch.tensor(1)),
+    }
+    torch.cuda.synchronize()
+    for name, (got, want) in res.items():
+        check(torch.equal(got.cpu(), want.cpu()), f"[mesh nccl] {name}: {got} against {want}")
+    on_host = [name for name, (got, _) in res.items() if name != "heartbeat" and got.device.type != "cuda"]
+    check(mesh.transport == "nccl" and not on_host,
+          f"[mesh nccl] transport {mesh.transport}; results staged to the host: {on_host}")
+    with open(os.path.join(tmp, "nccl.json"), "w") as f:
+        json.dump({"checked": sorted(res), "device": str(dev)}, f)
+    torch.distributed.destroy_process_group()
+
+
+def mesh_nccl_phase(card):
+    """The NCCL transport with one rank on the card: the only place it runs
+    until a host with several GPUs exists (NCCL refuses two ranks on one
+    GPU)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        _spawn(nccl_rank, 1, (tmp,), 180, "[mesh nccl]")
+        with open(os.path.join(tmp, "nccl.json")) as f:
+            got = json.load(f)
+    print(f"[mesh nccl] one NCCL rank on {got['device']}, CUDA tensors: {', '.join(got['checked'])} equal their "
+          f"definitions ({time.perf_counter() - t0:.1f} s with the process start; the only NCCL run until a "
+          f"multi-GPU host exists) on {card}")
+
+
+def mesh_detected_cfg(mesh_devices=None):
+    """The detected 3k cell's settings: the CLI's ``--detected`` with the
+    second-best exclusion radius at 0, since the ring search (as the JAX
+    package's) has none; the single-device reference takes the same."""
+    import dataclasses as dc
+
+    from diasss_tpu_torch.config import PipelineConfig, detected_config
+
+    cfg = detected_config(PipelineConfig(mesh_devices=mesh_devices))
+    return dc.replace(cfg, matcher=dc.replace(cfg.matcher, ratio_excl_radius=0.0))
+
+
+def mesh_rank(rank: int, world: int, tmp: str):
+    """One of the [mesh 4] ranks: every cell through the entry points a
+    user calls, with ``mesh_devices=world``; writes its results to
+    ``tmp/rank{rank}.json`` (rank 0 also the 4.2k BA poses)."""
+    import dataclasses as dc
+
+    from diasss_tpu_torch.config import FullBAConfig, PipelineConfig, PoseGraphConfig, automatic_config
+    from diasss_tpu_torch.features import detect_features, fast_cuda
+    from diasss_tpu_torch.matching import dense_cuda
+    from diasss_tpu_torch.matching.geosearch import geo_nn_search
+    from diasss_tpu_torch.matching.robust import _ring_nn, kp_geo
+    from diasss_tpu_torch.geometry.sonar import geo_bbox
+    from diasss_tpu_torch.evaluate import trajectory_ate_pair
+    from diasss_tpu_torch.online import OnlineSlam
+    from diasss_tpu_torch.parallel.recovery import elastic_seq_pose_graph_solve, group_mesh
+    from diasss_tpu_torch.parallel.seq import seq_pose_graph_solve
+    from diasss_tpu_torch.pipeline import _overlap_pairs, _pad_feats_common, run_slam
+    from diasss_tpu_torch.solvers.pose_graph import graph_error, pg_pose_marginals
+    from diasss_tpu_torch.synthetic import make_survey
+
+    mesh = _rank_setup(rank, world, os.path.join(tmp, "store"), "gloo")
+    dev = mesh.device
+    out = {}
+
+    def cell(name, fn):
+        torch.distributed.barrier()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fast_cuda.launches = dense_cuda.launches = 0
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        out[name] = dict(res, wall=time.perf_counter() - t0, peak_mib=torch.cuda.max_memory_allocated() / 2 ** 20,
+                         b1=fast_cuda.launches, b2=dense_cuda.launches)
+
+    def slam(survey, cfg, feats=None, frames=None):
+        gt = [l.gt_poses for l in survey.lines]
+        with solver_infos() as infos:
+            res = run_slam(frames if frames is not None else build_frames(survey, dev), cfg, gt_rows_list=gt,
+                           run_eval2=False, feats=feats)
+        return res, dict(ate_dr=res.ate_dr, ate_est=res.ate_est, capped=res.solve_capped, counters=res.counters,
+                         n_lc=res.n_lc_accepted, pairs=len(res.pair_ids), frames=len(res.frame_slices),
+                         trials=[i.iterations for i in infos], cg=[i.cg_iters_total for i in infos],
+                         stalls=[i.stall for i in infos], errors=[float(i.error) for i in infos],
+                         error=res.solve_error)
+
+    mesh_cfg = dict(mesh_devices=world)
+    s12 = make_survey(**{**SURVEY, "n_lines": 20})
+    graph12k = []
+
+    def anno12k():
+        from diasss_tpu_torch.parallel import seq
+
+        entry = seq.seq_pose_graph_solve
+
+        def keep(mesh_, graph, *args, **kwargs):
+            graph12k.append(graph)
+            return entry(mesh_, graph, *args, **kwargs)
+
+        seq.seq_pose_graph_solve = keep
+        try:
+            res, summary = slam(s12, PipelineConfig(**mesh_cfg))
+        finally:
+            seq.seq_pose_graph_solve = entry
+        if rank == 0:
+            np.save(os.path.join(tmp, "anno12k_t.npy"), res.poses.t.cpu().numpy())
+        return summary
+
+    cell("anno12k direct", anno12k)
+    cell("anno12k dense_seg", lambda: slam(s12, PipelineConfig(pose_graph=PoseGraphConfig(preconditioner="dense_seg"),
+                                                               **mesh_cfg))[1])
+
+    def elastic():
+        """The 12k run's pose graph: solved uninterrupted on all ranks; in
+        chunks with every rank kept; uninterrupted on the survivors (ranks
+        0-1) alone; and in chunks with ranks 2-3 gone from chunk 1 on."""
+        graph, cfg = graph12k[0], PoseGraphConfig()
+        whole, info = seq_pose_graph_solve(mesh, graph, cfg)
+        chunked, _, _ = elastic_seq_pose_graph_solve(graph, cfg, chunk=5, mesh=mesh, probe=lambda c, ranks: ranks)
+        keep = list(range(world // 2))
+        survivors = None
+        if rank in keep:
+            survivors, info_s = seq_pose_graph_solve(group_mesh(mesh, keep), graph, cfg)
+        torch.distributed.barrier()
+
+        def probe(chunk_idx, ranks):
+            return ranks if chunk_idx == 0 else [r for r in ranks if r in keep]
+
+        poses, info_e, events = elastic_seq_pose_graph_solve(graph, cfg, chunk=5, mesh=mesh, probe=probe)
+        dr = torch.cat([torch.as_tensor(l.dr_poses[:, 3:6], dtype=torch.float32, device=dev) for l in s12.lines])
+        gt = np.concatenate([l.gt_poses for l in s12.lines])
+        ate_whole, ate_el = trajectory_ate_pair(dr, whole, gt)[1], trajectory_ate_pair(dr, poses, gt)[1]
+        # translation gaps in units of each pose's marginal standard deviation
+        cov = pg_pose_marginals(graph, whole)[:, 3:6, 3:6]
+        R = whole.R.double()
+        S = R @ cov @ R.transpose(-1, -2) + 1e-12 * torch.eye(3, dtype=torch.float64, device=dev)
+
+        def sigmas(p):
+            d = (p.t - whole.t).double()
+            return float(torch.sqrt(torch.einsum("pi,pij,pj->p", d, torch.linalg.inv(S), d)).max())
+
+        def f64(x):
+            if isinstance(x, torch.Tensor):
+                return x.double() if x.is_floating_point() else x
+            return type(x)(*[f64(y) for y in x])
+
+        out = dict(gap=float((poses.t - whole.t).abs().max()), gap_sigma=sigmas(poses),
+                   gap_chunked=float((chunked.t - whole.t).abs().max()), error=float(info_e.error),
+                   error_whole=float(info.error), ate=ate_el, ate_whole=ate_whole, ate_gap=abs(ate_el - ate_whole),
+                   cost_f32_noise=abs(float(graph_error(whole, graph)) - float(graph_error(f64(whole), f64(graph)))),
+                   events=events, trials=info.iterations, kind=info.solver_kind, survivor=rank in keep)
+        if survivors is not None:
+            out.update(spread=float((survivors.t - whole.t).abs().max()), spread_sigma=sigmas(survivors),
+                       error_survivors=float(info_s.error), trials_survivors=info_s.iterations)
+        return out
+
+    cell("elastic 12k", elastic)
+    del s12, graph12k
+
+    sba = make_survey(**BA_SURVEY)
+    ba_cfg = PipelineConfig(min_overlap=0.1, estimator="full_ba", full_ba=FullBAConfig(preconditioner="direct"),
+                            **mesh_cfg)
+
+    def ba4k():
+        res, summary = slam(sba, ba_cfg)
+        if rank == 0:
+            np.save(os.path.join(tmp, "ba4k_t.npy"), res.poses.t.cpu().numpy())
+        return summary
+
+    cell("ba4k direct", ba4k)
+
+    auto_survey = make_survey(**AUTO_SURVEY)
+    auto = automatic_config()
+    auto = dc.replace(auto, full_ba=dc.replace(auto.full_ba, preconditioner="direct"), **mesh_cfg)
+    cell("auto", lambda: slam(auto_survey, auto)[1])
+
+    sdet = make_survey(**SURVEY)
+    det = mesh_detected_cfg(world)
+
+    def detected():
+        frames = build_frames(sdet, dev)
+        feats = [detect_features(f.norm, f.mask, det.detector) for f in frames]
+        kcap = max(int(f.xy.shape[0]) for f in feats)
+        cfg = dc.replace(det, matcher=dc.replace(det.matcher, ring_min_kps=kcap))
+        res, summary = slam(sdet, cfg, feats=feats, frames=frames)
+        # the ring's NN decisions against the single-device search, every gated pair, both directions
+        padded = _pad_feats_common(feats)
+        n_rows = n_equal = 0
+        for (i, j) in _overlap_pairs(frames, cfg.min_overlap):
+            flip = frames[i].img_id % 2 != frames[j].img_id % 2
+            for a, b in ((i, j), (j, i)):
+                ga, gb = kp_geo(padded[a], frames[a].geo), kp_geo(padded[b], frames[b].geo)
+                bb = geo_bbox(frames[b].geo)
+                ring = _ring_nn(ga, padded[a], gb, padded[b], bb, cfg.matcher, flip, mesh).corres
+                one = geo_nn_search(ga, padded[a].desc, padded[a].valid, gb, padded[b].desc, padded[b].valid, bb,
+                                    cfg.matcher, flip).corres
+                n_rows += int(ring.numel())
+                n_equal += int((ring == one).sum())
+        return dict(summary, ring_min_kps=kcap, ring_rows=n_rows, ring_equal=n_equal)
+
+    cell("detected ring", detected)
+    del sdet
+
+    def online():
+        cfg = PipelineConfig(min_overlap=0.1, estimator="full_ba", full_ba=FullBAConfig(preconditioner="direct"),
+                             **mesh_cfg)
+        frames = build_frames(sba, dev)
+        slam_ = OnlineSlam(cfg, window_frames=ONLINE_WINDOWS["full_ba"], device=dev)
+        for f in frames:
+            poses = slam_.add_frame(f)
+        ate_dr, ate = ate_of(frames, poses, [l.gt_poses for l in sba.lines])
+        return dict(ate_dr=ate_dr, ate_est=ate, kind=slam_._last_info.solver_kind)
+
+    cell("online ba4k window 3", online)
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f, default=str)
+    torch.distributed.destroy_process_group()
+
+
+def mesh4_phase(card, refs):
+    """The [mesh 4] phase: MESH_N ranks, spawned, all on cuda:0 over gloo;
+    each cell's result on every rank against the single-device run of the
+    same smoke run (``refs``).  Returns the per-rank B1 / B2 launches."""
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        _spawn(mesh_rank, MESH_N, (MESH_N, tmp), MESH_TIMEOUT_S, "[mesh 4]")
+        wall = time.perf_counter() - t0
+        ranks = []
+        for r in range(MESH_N):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        ba_t = np.load(os.path.join(tmp, "ba4k_t.npy"))
+        anno_t = np.load(os.path.join(tmp, "anno12k_t.npy"))
+    print(f"[mesh 4] {MESH_N} ranks (spawn, gloo, cuda:0) in {wall:.1f} s with the process starts; {MESH_LABEL}")
+    from diasss_tpu_torch.config import automatic_config
+
+    r0 = ranks[0]
+    failed = []
+
+    def gate(ok, msg):
+        if not ok:
+            failed.append(msg)
+
+    def line(name, extra):
+        c = r0[name]
+        peaks = ", ".join(f"{r[name]['peak_mib']:.0f}" for r in ranks)
+        single = refs.get(name + "_wall", refs.get(name.split()[0] + "_wall"))
+        solves = f"LM trials {c['trials']}, CG iterations {c['cg']}; " if "trials" in c and isinstance(c["trials"], list) else ""
+        print(f"[mesh 4] {name}: {extra}; {solves}wall {c['wall']:.3f} s (single device "
+              f"{'not run' if single is None else f'{single:.3f}'} s), peak MiB per rank {peaks}; {MESH_LABEL}; on {card}")
+
+    for r in ranks:  # every rank holds the same result
+        for name in r0:
+            for key in ("ate_est", "gap"):
+                if key in r0[name]:
+                    gate(r[name][key] == r0[name][key], f"[mesh 4] {name}: ranks differ in {key}")
+
+    c = r0["anno12k direct"]
+    line("anno12k direct", f"ATE DR/EST {c['ate_dr']:.4f}/{c['ate_est']:.4f} m against the single device's "
+                           f"{refs['anno12k']:.4f}, solve error {c['error']:.4f} against {refs['anno12k_error']:.4f}, "
+                           f"largest pose gap to the single device {np.abs(anno_t - refs['anno12k_t']).max():.2e} m, "
+                           f"capped {c['capped']}, counters {json.dumps(c['counters'])}")
+    gate(abs(c["ate_est"] - refs["anno12k"]) <= MESH_GATES["anno12k"] and not c["capped"]
+          and c["counters"].get("solver_sp_direct_solves") == 1, f"[mesh 4] anno12k direct: {c}")
+    c = r0["anno12k dense_seg"]
+    line("anno12k dense_seg", f"ATE {c['ate_est']:.4f} m against the single device's dense_seg pass "
+                              f"{refs['anno12k_dense_seg']:.4f} ({refs['anno12k_dense_seg_cg']} CG iterations) and "
+                              f"the mesh direct pass's {r0['anno12k direct']['ate_est']:.4f}, counters "
+                              f"{json.dumps(c['counters'])}")
+    gate(abs(c["ate_est"] - refs["anno12k_dense_seg"]) <= MESH_GATES["anno12k"]
+          and c["counters"].get("solver_sp_dense_seg_solves") == 1, f"[mesh 4] anno12k dense_seg: {c}")
+    c = r0["ba4k direct"]
+    gap = float(np.abs(ba_t - refs["ba4k_t"]).max())
+    line("ba4k direct", f"poses within {gap:.2e} m of the single-device solve (gate {MESH_GATES['ba4k_poses']}), "
+                        f"ATE {c['ate_est']:.4f} m against {refs['ba4k']:.4f}, counters {json.dumps(c['counters'])}")
+    gate(gap <= MESH_GATES["ba4k_poses"] and abs(c["ate_est"] - refs["ba4k"]) <= MESH_GATES["ba4k_ate_rel"] * refs["ba4k"]
+          and c["counters"].get("solver_sp_direct_solves") == 1, f"[mesh 4] ba4k: {c}, gap {gap}")
+    c = r0["auto"]
+    b1 = [r["auto"]["b1"] for r in ranks]
+    b2 = [r["auto"]["b2"] for r in ranks]
+    line("auto", f"ATE DR/EST {c['ate_dr']:.4f}/{c['ate_est']:.4f} m against {refs['auto']:.4f}; per solve (match "
+                 f"round 0, then the rematch round) LM trials {c['trials']} against the single device's "
+                 f"{refs['auto_trials']} (cap {automatic_config().full_ba.max_iters} each), stall at exit {c['stalls']} against "
+                 f"{refs['auto_stalls']} (0 at the cap: still improving), error {c['errors']} against "
+                 f"{refs['auto_errors']}; solve_capped {c['capped']} against {refs['auto_capped']}; correspondences "
+                 f"in the last solve {c['n_lc']} against {refs['auto_n_lc']}; B1 launches per rank {b1}, B2 launches "
+                 f"per rank {b2}, counters {json.dumps(c['counters'])}")
+    rounds = c["counters"]["match_stacked_pairs"] // c["pairs"]
+    gate(abs(c["ate_est"] - refs["auto"]) <= MESH_GATES["auto"] and not c["capped"] and all(n == c["frames"] for n in b1)
+          and all(n == rounds for n in b2) and c["counters"].get("match_mesh_devices", 0) > 0,
+          f"[mesh 4] auto: {c}, B1 {b1}, B2 {b2}")
+    c = r0["detected ring"]
+    b1 = [r["detected ring"]["b1"] for r in ranks]
+    line("detected ring", f"ring_min_kps lowered to the keypoint capacity {c['ring_min_kps']} so that the ring runs: "
+                          f"{c['counters'].get('match_ring_pairs')} ring pairs, NN decisions equal to the single-device "
+                          f"geo_nn_search on {c['ring_equal']} of {c['ring_rows']} rows; ATE {c['ate_est']:.4f} m "
+                          f"against {refs['detected']:.4f} (the per-pair path draws its SCC hypotheses pair by pair, "
+                          f"the single-device stacked path for all pairs at once); B1 launches per rank {b1}")
+    gate(c["ring_equal"] == c["ring_rows"] > 0 and c["counters"].get("match_ring_pairs", 0) == c["pairs"] > 0
+          and abs(c["ate_est"] - refs["detected"]) <= MESH_GATES["detected"] and all(n == c["frames"] for n in b1),
+          f"[mesh 4] detected: {c}, B1 {b1}")
+    c = r0["elastic 12k"]
+    line("elastic 12k", f"the 12k run's pose graph, ranks 2-3 dropped at chunk 1 (events {c['events']}), against the "
+                        f"uninterrupted {c['kind']} solve on {MESH_N} ranks ({c['trials']} trials): ATE {c['ate']:.4f} "
+                        f"against {c['ate_whole']:.4f} m, gap {c['ate_gap']:.2e} m (gate {MESH_GATES['elastic']}); "
+                        f"largest pose gap {c['gap']:.2e} m, {c['gap_sigma']:.3f} of the pose's marginal sigma (gate "
+                        f"{MESH_GATES['elastic_sigma']}); error {c['error']:.4f} against {c['error_whole']:.4f} (gate "
+                        f"{MESH_GATES['elastic_error_rel']} relative); chunk boundaries with every rank kept move it "
+                        f"by {c['gap_chunked']:.2e} m (must be 0).  The rank count alone: the uninterrupted solve on "
+                        f"the survivors' {MESH_N // 2} ranks ({c['trials_survivors']} trials, error "
+                        f"{c['error_survivors']:.4f}) lies {c['spread']:.2e} m, {c['spread_sigma']:.3f} sigma from it; "
+                        f"the float32 cost at its poses is {c['cost_f32_noise']:.2e} off its float64 value")
+    gate(c["gap_sigma"] <= MESH_GATES["elastic_sigma"] and c["gap_chunked"] == 0.0
+          and abs(c["error"] - c["error_whole"]) <= MESH_GATES["elastic_error_rel"] * c["error_whole"]
+          and c["ate_gap"] <= MESH_GATES["elastic"] and [tuple(e) for e in c["events"]] == [(1, MESH_N, MESH_N // 2)],
+          f"[mesh 4] elastic: {c}")
+    c = r0["online ba4k window 3"]
+    line("online ba4k window 3", f"final ATE DR/EST {c['ate_dr']:.4f}/{c['ate_est']:.4f} m against the single-device "
+                                 f"stream's {refs['online']:.4f} ({c['kind']})")
+    gate(abs(c["ate_est"] - refs["online"]) <= MESH_GATES["online"], f"[mesh 4] online: {c}")
+    check(not failed, "[mesh 4] gates failed: " + " | ".join(failed))
+    return {f"mesh4_auto_rank{r}": ranks[r]["auto"]["b1"] for r in range(MESH_N)}, \
+        {f"mesh4_auto_rank{r}": ranks[r]["auto"]["b2"] for r in range(MESH_N)}, \
+        {f"mesh4_detected_rank{r}": ranks[r]["detected ring"]["b1"] for r in range(MESH_N)}
+
+
+def multihost_phase(card):
+    """``multihost_check`` in two OS processes over tcp:// on the card
+    (gloo: the ranks share cuda:0)."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    repo = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-m", "diasss_tpu_torch.parallel.multihost_check", "--init-method",
+                               f"tcp://127.0.0.1:{port}", "--world-size", "2", "--rank", str(r), "--backend", "gloo",
+                               "--device", "cuda:0"], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                              cwd=repo) for r in (0, 1)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, f"multihost_check rank {r} exited {p.returncode}:\n{out[-3000:]}")
+        for marker in ("MULTIHOST_OK", "MULTIHOST_BA_OK", "MULTIHOST_ELASTIC_OK"):
+            check(marker in out, f"multihost_check rank {r} printed no {marker}:\n{out[-3000:]}")
+    lines = [l for l in outs[0].splitlines() if l.startswith(("rank 0", "MULTIHOST"))]
+    print(f"[multihost_check] 2 processes over tcp:// (gloo, cuda:0), {time.perf_counter() - t0:.1f} s: "
+          f"{' | '.join(lines)} on {card}")
+
+
+def mesh_refs(dev, card, refs):
+    """The single-device runs the mesh cells are held to: those of this
+    smoke run's earlier phases (``refs``), and the two made here, the
+    detected cell's (its exclusion radius at 0) and the 12k dense_seg pass."""
+    from diasss_tpu_torch.config import PipelineConfig, PoseGraphConfig
+    from diasss_tpu_torch.pipeline import run_slam
+    from diasss_tpu_torch.synthetic import make_survey
+
+    def single(survey_kw, cfg):
+        survey = make_survey(**survey_kw)
+        frames = build_frames(survey, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run_slam(frames, cfg, gt_rows_list=[l.gt_poses for l in survey.lines], run_eval2=False)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    res, refs["detected_wall"] = single(SURVEY, mesh_detected_cfg())
+    refs["detected"] = res.ate_est
+    # the 12k survey's dense_seg pass on one device: the mesh's dense_seg pass is held to it
+    with solver_infos() as infos:
+        res, refs["anno12k dense_seg_wall"] = single({**SURVEY, "n_lines": 20},
+                                                     PipelineConfig(pose_graph=PoseGraphConfig(preconditioner="dense_seg")))
+    refs.update(anno12k_dense_seg=res.ate_est, anno12k_dense_seg_cg=sum(i.cg_iters_total for i in infos))
+    print(f"[mesh refs] single device: anno12k {refs['anno12k']:.4f} m (dense_seg {refs['anno12k_dense_seg']:.4f} m), "
+          f"ba4k {refs['ba4k']:.4f} m, auto "
+          f"{refs['auto']:.4f} m, detected (exclusion radius 0) {refs['detected']:.4f} m, online ba4k window "
+          f"{ONLINE_WINDOWS['full_ba']} {refs['online']:.4f} m on {card}")
+    return refs
+
+
+def mesh_phases(dev, card, refs):
+    """[mesh nccl], [mesh 4] and the two-process multihost check; returns
+    the per-rank launches of [mesh 4] (B1 and B2 of the automatic cell, B1
+    of the detected cell)."""
+    t0 = time.perf_counter()
+    mesh_nccl_phase(card)
+    refs = mesh_refs(dev, card, refs)
+    launches = mesh4_phase(card, refs)
+    multihost_phase(card)
+    print(f"[mesh] the multi-device phases took {time.perf_counter() - t0:.1f} s")
+    return launches
 
 
 def main() -> int:
@@ -1105,14 +1627,18 @@ def main() -> int:
     auto_gt = [l.gt_poses for l in auto_survey.lines]
     recorded, correlate_args = [], []
     # warm-up, records the inputs of B2 and of the dense correlation
-    warm = auto_run(build_frames(auto_survey, dev), auto_cfg, auto_gt, record=recorded,
-                    record_correlate=correlate_args)
+    with solver_infos() as warm_infos:
+        warm = auto_run(build_frames(auto_survey, dev), auto_cfg, auto_gt, record=recorded,
+                        record_correlate=correlate_args)
     check(len(recorded) >= 1 and len(correlate_args) == len(recorded),
           "the automatic warm-up pass never reached the q-correlation")
     q_err, q_ms, q_dev_ms, q_dev_by, q_plain_ms, q_lib_ms, q_bound, q_by = qcorr_phase(dev, recorded,
                                                                                       correlate_args)
     del recorded, correlate_args
-    fast_auto, qcorr_auto = auto_phase(dev, auto_survey, auto_cfg, auto_gt, card, warm.ate_est)
+    fast_auto, qcorr_auto, auto_wall = auto_phase(dev, auto_survey, auto_cfg, auto_gt, card, warm.ate_est)
+    refs = dict(auto=warm.ate_est, auto_wall=auto_wall, auto_trials=[i.iterations for i in warm_infos],
+                auto_stalls=[i.stall for i in warm_infos], auto_errors=[float(i.error) for i in warm_infos],
+                auto_capped=warm.solve_capped, auto_n_lc=warm.n_lc_accepted)
     marg_cfg = dataclasses.replace(auto_cfg, full_ba=dataclasses.replace(auto_cfg.full_ba, marginals=True))
     fast_marg, qcorr_marg = auto_marginals_phase(dev, auto_survey, marg_cfg, auto_gt, card)
 
@@ -1132,17 +1658,23 @@ def main() -> int:
     print(f"[anno 12000] the float64 direct step: solve_capped {result12k.solve_capped}, pose_graph "
           f"{result12k.timings['pose_graph']:.4f} s, ATE {result12k.ate_est:.4f} m")
     check(not result12k.solve_capped, "anno 12000: the pose-graph solve stopped at its trial cap while improving")
+    refs.update(anno12k=result12k.ate_est, anno12k_error=result12k.solve_error,
+                anno12k_wall=result12k.timings["timed_pass_wall"], anno12k_t=result12k.poses.t.cpu().numpy())
     marginals_envelope(dev, survey12k, result12k.poses, card)
     del survey12k, result12k
-    annotation_phase(dev, card, BA_SURVEY, ba(), "full_ba anno", profile=True,
-                     variants=[("full_ba anno marginals", ba(marginals=True)),
-                               ("full_ba anno dense_seg", ba(preconditioner="dense_seg"))])
+    _, result4k = annotation_phase(dev, card, BA_SURVEY, ba(), "full_ba anno", profile=True,
+                                   variants=[("full_ba anno marginals", ba(marginals=True)),
+                                             ("full_ba anno dense_seg", ba(preconditioner="dense_seg"))])
+    refs.update(ba4k=result4k.ate_est, ba4k_t=result4k.poses.t.cpu().numpy(),
+                ba4k_wall=result4k.timings["timed_pass_wall"])
+    del result4k
 
     fast_online, qcorr_online = online_auto_phase(dev, auto_survey, auto_cfg, auto_gt, card)
-    online_window_phase(dev, card, {**SURVEY, "n_lines": 20}, PipelineConfig(), ONLINE_WINDOWS["two_stage"],
-                        "online window anno")
-    online_window_phase(dev, card, BA_SURVEY, PipelineConfig(min_overlap=0.1, estimator="full_ba"),
-                        ONLINE_WINDOWS["full_ba"], "online window full_ba")
+    online_window_phase(dev, card, {**SURVEY, "n_lines": ONLINE_ANNO_LINES}, PipelineConfig(),
+                        ONLINE_WINDOWS["two_stage"], "online window anno")
+    refs["online"], refs["online_wall"] = online_window_phase(
+        dev, card, BA_SURVEY, PipelineConfig(min_overlap=0.1, estimator="full_ba"), ONLINE_WINDOWS["full_ba"],
+        "online window full_ba")
     checkpoint_phase(dev, card)
     fast_orb = descriptor_phase(dev, card, "orb")
     fast_geo_patch = descriptor_phase(dev, card, "geo_patch")
@@ -1155,6 +1687,7 @@ def main() -> int:
     annotation_phase(dev, card, SURVEY, PipelineConfig(), "mixed anno", crops=MIXED_ANNO_CROPS, improve=False)
     annotation_phase(dev, card, BA_SURVEY, ba(), "mixed full_ba anno", crops=MIXED_BA_CROPS)
     cli_phase(dev, card, SURVEY, MIXED_ANNO_CROPS)
+    fast_mesh, qcorr_mesh, fast_mesh_detected = mesh_phases(dev, card, refs)
 
     print(json.dumps({"kernels": [
         {
@@ -1166,7 +1699,7 @@ def main() -> int:
             "launches_by_phase": {"auto": fast_auto, "auto_marginals": fast_marg, "detected": fast_detected,
                                   "online_auto": fast_online, "detected_orb": fast_orb,
                                   "detected_geo_patch": fast_geo_patch, "mixed_auto": fast_mixed,
-                                  "online_mixed_auto": fast_mixed_online},
+                                  "online_mixed_auto": fast_mixed_online, **fast_mesh, **fast_mesh_detected},
             "max_abs_err": max(fast_err, b1_mixed_err),
             "ms": fast_ms,
             "device_ms": fast_dev_ms,
@@ -1183,7 +1716,7 @@ def main() -> int:
             "replaces": "diasss_tpu/matching/dense_pallas.py:32",
             "launches": qcorr_online,
             "launches_by_phase": {"auto": qcorr_auto, "auto_marginals": qcorr_marg, "online_auto": qcorr_online,
-                                  "mixed_auto": qcorr_mixed, "online_mixed_auto": qcorr_mixed_online},
+                                  "mixed_auto": qcorr_mixed, "online_mixed_auto": qcorr_mixed_online, **qcorr_mesh},
             "max_abs_err": max(q_err, b2_mixed_err),
             "ms": q_ms,
             "device_ms": q_dev_ms,

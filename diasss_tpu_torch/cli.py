@@ -28,13 +28,26 @@ newest W lines), prints one line per arrival and the ATE, and with
 ``--out`` writes ``online_est_poses_{img_id}.txt`` per line; it computes no
 marginals and writes no metrics.  ``--descriptor orb|geo_patch`` with
 ``--detected`` takes the JAX package's matcher settings for that family.
-``--mesh`` is not ported yet and exits with an error that names its ROADMAP
-item.
+``--mesh N`` runs the multi-device layer (:mod:`.parallel`: sequence-parallel
+solvers, data-parallel matchers, the ring NN search) with one process per
+rank, started by torchrun::
+
+    torchrun --nproc-per-node N -m diasss_tpu_torch.cli --mesh N \
+        [--dist-backend nccl|gloo] --image DIR ...
+
+``--dist-backend nccl`` (the default on the card) puts one rank on each GPU;
+``gloo`` stages every exchange through host memory and is the one to use
+when ranks share a GPU (NCCL refuses two ranks on one device) or run on the
+CPU.  Each rank computes on ``cuda:LOCAL_RANK`` modulo the GPU count (with
+``--device cuda``).  Only rank 0 prints and writes ``--out``, ``--metrics``,
+``--mosaic`` and ``--trace``.  Without torchrun, ``--mesh N`` with N > 1
+exits with an error that gives the torchrun line.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -72,16 +85,61 @@ def main(argv=None) -> int:
                         help="--online: fixed-lag window of W lines (per-line solve cost stays O(window))")
     parser.add_argument("--mosaic", default=None, metavar="FILE.png",
                         help="write the world mosaic rendered from the estimated poses")
-    parser.add_argument("--mesh", type=int, default=None, metavar="N", help="N-device mesh")
+    parser.add_argument("--mesh", type=int, default=None, metavar="N",
+                        help="N-rank mesh (sequence-parallel solvers, data-parallel matchers); run under "
+                             "torchrun --nproc-per-node N")
+    parser.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
+                        help="--mesh: the process group's transport (default nccl with --device cuda, else gloo; "
+                             "gloo when ranks share a GPU)")
     parser.add_argument("--no-marginals", action="store_true",
                         help="skip the exact per-pose marginal covariances that --out/--metrics turn on")
     parser.add_argument("--trace", default=None, metavar="DIR",
                         help="write a torch.profiler Chrome trace of the solve to DIR/trace.json")
     args = parser.parse_args(argv)
 
-    if args.mesh:
-        parser.error("--mesh is not ported to diasss_tpu_torch yet (ROADMAP A14: multi-device)")
+    import torch
 
+    mesh_n = args.mesh if args.mesh and args.mesh > 1 else None
+    if mesh_n and "WORLD_SIZE" not in os.environ:
+        parser.error(f"--mesh {mesh_n} runs one process per rank: torchrun --nproc-per-node {mesh_n} "
+                     f"-m diasss_tpu_torch.cli --mesh {mesh_n} [--dist-backend nccl|gloo] ...")
+    if mesh_n:
+        return _mesh_main(args, parser, mesh_n)
+    return _run(args, parser, torch.device(args.device))
+
+
+def _mesh_main(args, parser, n: int) -> int:
+    """``--mesh N`` under torchrun: join the group, run as rank
+    ``RANK`` on its device, only rank 0 printing and writing."""
+    import torch
+    import torch.distributed as dist
+
+    from .parallel.distributed import initialize, is_primary
+
+    world = int(os.environ["WORLD_SIZE"])
+    if world != n:
+        parser.error(f"--mesh {n} needs torchrun --nproc-per-node {n}, this run has {world} ranks")
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        parser.error("--device cuda but torch.cuda.is_available() is False; pass --device cpu")
+    backend = args.dist_backend or ("nccl" if device.type == "cuda" else "gloo")
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)) % max(torch.cuda.device_count(), 1))
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    initialize(backend=backend)
+    try:
+        if not is_primary():
+            args.out = args.metrics = args.mosaic = args.trace = None
+            with open(os.devnull, "w") as quiet, contextlib.redirect_stdout(quiet):
+                return _run(args, parser, device)
+        print(f"rank 0 of {world} ({backend}) on {device}")
+        return _run(args, parser, device)
+    finally:
+        dist.destroy_process_group()
+
+
+def _run(args, parser, device) -> int:
     import numpy as np
     import torch
 
@@ -89,7 +147,6 @@ def main(argv=None) -> int:
     from .parallel.prefetch import load_keyframes_pipelined
     from .pipeline import run_slam
 
-    device = torch.device(args.device)
     if device.type == "cuda":
         if not torch.cuda.is_available():
             parser.error("--device cuda but torch.cuda.is_available() is False; pass --device cpu")
@@ -100,6 +157,8 @@ def main(argv=None) -> int:
         cfg = automatic_config(drift_budget=args.drift_budget)
     else:
         cfg = PipelineConfig(estimator=args.estimator)
+    if args.mesh:
+        cfg = dataclasses.replace(cfg, mesh_devices=args.mesh)
     if args.min_overlap is not None:
         cfg = dataclasses.replace(cfg, min_overlap=args.min_overlap)
     if args.detected and not args.auto:

@@ -91,7 +91,11 @@ class MatcherConfig:
     # > 0: the ratio test's second-best candidate must lie at least this many
     # meters from the best one
     ratio_excl_radius: float = 0.0
-    # multi-device ring-pass NN search threshold (not ported: ROADMAP A14)
+    # with a mesh (``mesh_devices``), keypoint capacities of at least this
+    # take the ring-pass NN search pair by pair (parallel/ring.py) instead of
+    # the stacked batch, whose (pairs, K, K) distance tensor the ring never
+    # holds whole; the JAX package's value (its crossover was measured on a
+    # virtual CPU mesh, none on the card)
     ring_min_kps: int = 4096
 
 
@@ -226,7 +230,9 @@ class PipelineConfig:
     # stop re-matching once the residual q95 is at this many raster cells
     # (both match endpoints are cell centers: the quantization floor)
     rematch_stop_resid_cells: float = 2.0
-    # multi-device solves and matching (ROADMAP A14)
+    # n > 1: the global solves run sequence-parallel over a process group of
+    # n ranks (parallel/seq.py) and the matchers split their pairs over it;
+    # raises without such a group.  None = one device
     mesh_devices: int | None = None
 
 

@@ -375,9 +375,13 @@ def dense_matching_stacked(pair_ids, img_ids, feats_list, norm_list, geo_list, d
     smoothness-filtered in one batch, one device-to-host transfer.
 
     Requires all frames to share the keypoint capacity K.  Returns ``{(i, j): (rows_s, rows_t, n)}``
-    in the corres_kps layout."""
-    if mesh is not None:
-        raise NotImplementedError("dense matching over a device mesh is not ported yet (ROADMAP A14: multi-device)")
+    in the corres_kps layout.
+
+    ``mesh``: the pair axis is data-parallel over its ranks (the rasters
+    are made whole on every rank; each rank correlates its block of pairs,
+    so the q-correlation kernel runs on every rank; dummy pairs, frame 0
+    against itself, fill the last block and their results are cut off);
+    one all-gather of the per-pair outcomes, the same rows on every rank."""
     res = det_cfg.geopatch_res
     dev = geo_list[0].device
     xy_st = torch.stack([f.xy for f in feats_list])
@@ -409,6 +413,14 @@ def dense_matching_stacked(pair_ids, img_ids, feats_list, norm_list, geo_list, d
     si = torch.as_tensor([i for (i, j) in pair_ids], dtype=torch.int64, device=dev)
     ti = torch.as_tensor([j for (i, j) in pair_ids], dtype=torch.int64, device=dev)
 
+    n_pairs = len(pair_ids)
+    if mesh is not None:
+        from ..padding import pad_to_multiple
+        from ..parallel.shard import block_of
+
+        si, ti = pad_to_multiple(si, mesh.size), pad_to_multiple(ti, mesh.size)
+        blk = block_of(mesh, int(si.shape[0]))
+        si, ti = si[blk], ti[blk]
     n_ring = int(np.ceil(cfg.search_radius / res))
     dm, keep = _dense_pairs_program(
         rimg, rcnt, rping, rcol, x0s, y0s, geo_kps, kp_valid, si, ti,
@@ -416,10 +428,14 @@ def dense_matching_stacked(pair_ids, img_ids, feats_list, norm_list, geo_list, d
         ncc_min=cfg.ncc_min, ncc_ratio=cfg.ncc_ratio, min_cover=cfg.min_cover,
         radius=float(cfg.smooth_radius), min_neighbors=int(cfg.smooth_min_neighbors), tol=float(cfg.smooth_tol),
     )
+    per_pair = torch.stack([keep.to(torch.float32), dm.tgt_ping, dm.tgt_col])  # (3, pairs, K)
+    if mesh is not None:
+        from ..parallel.collectives import all_gather
+
+        per_pair = all_gather(mesh, per_pair).transpose(0, 1).reshape(3, -1, per_pair.shape[2])[:, :n_pairs]
     # one transfer for the whole survey: keep, ping, col per pair + all frames' keypoints
-    n_pairs, K = keep.shape
-    host = torch.cat([torch.stack([keep.to(torch.float32), dm.tgt_ping, dm.tgt_col]).reshape(-1),
-                      xy_st.reshape(-1)]).cpu().numpy()
+    K = per_pair.shape[2]
+    host = torch.cat([per_pair.reshape(-1), xy_st.reshape(-1)]).cpu().numpy()
     packed = host[: 3 * n_pairs * K].reshape(3, n_pairs, K)
     keep_np, ping_np, col_np = packed[0] > 0, packed[1], packed[2]
     xy_np = host[3 * n_pairs * K:].reshape(xy_st.shape)

@@ -20,6 +20,11 @@ across the boundary are re-anchored onto the boundary pose; full-BA factors
 with one frozen endpoint keep it as a constant pose
 (``BAProblem.kp_{i,j}_fix``), those with both frozen drop.
 
+With ``cfg.mesh_devices`` (every rank of a process group streaming the same
+frames), the full-BA window solve is the sequence-parallel one
+(:func:`.parallel.seq.seq_full_ba_solve`): the frozen endpoints owner-align
+like any other factor data.
+
 Bucketing (``bucket=True``, the default): the pose chain is padded to a
 power-of-two length by repeating the last pose with identity odometry, and
 the loop-closure / correspondence axes by invalid rows.  It exists in the
@@ -42,7 +47,7 @@ from .frame import Keyframe
 from .geometry import se3
 from .padding import pad_rows
 from .pairs import get_kps_pairs
-from .pipeline import _assemble_pairs, _check_supported, _match_pairs, _overlap_pairs
+from .pipeline import _assemble_pairs, _check_supported, _match_pairs, _maybe_mesh, _overlap_pairs
 from .rng import TorchRng
 
 
@@ -97,9 +102,7 @@ class OnlineSlam:
             # first pose, which has no estimate yet
             raise ValueError("window_frames must be >= 2 (the newest frame "
                              "plus at least one estimated boundary frame)")
-        if cfg.mesh_devices:
-            raise NotImplementedError("mesh_devices (multi-device solves and matching) is not ported to "
-                                      "diasss_tpu_torch yet (ROADMAP A14: multi-device)")
+        _maybe_mesh(cfg, device)  # raises at once without a process group of mesh_devices ranks
         self.cfg = cfg
         self.bucket = bucket
         self.window_frames = window_frames
@@ -179,7 +182,13 @@ class OnlineSlam:
         p_real = int(prob.poses0.t.shape[0])
         if self.bucket:
             prob = self._pad_ba_problem(prob)
-        poses, _, info = solve_full_ba(prob, ba_cfg, cfg.kp_noise)
+        mesh = _maybe_mesh(cfg, self.device)
+        if mesh is not None:
+            from .parallel.seq import seq_full_ba_solve
+
+            poses, _, info = seq_full_ba_solve(mesh, prob, ba_cfg, cfg.kp_noise)
+        else:
+            poses, _, info = solve_full_ba(prob, ba_cfg, cfg.kp_noise)
         win = poses[:p_real]
         st.poses = se3.cat([st.poses[:cut], win]) if cut > 0 else win
         st.n_lc = int(prob.kp_valid.sum())

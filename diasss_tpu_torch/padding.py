@@ -1,8 +1,6 @@
 """Row padding: the append-fill-rows idiom of every capacity + mask site.
 
-Counterpart of :mod:`diasss_tpu.padding` (``pad_to_multiple`` serves only
-the JAX package's mesh paths and is not ported).  Tensors stay on their
-device.
+Counterpart of :mod:`diasss_tpu.padding`.  Tensors stay on their device.
 """
 
 from __future__ import annotations
@@ -24,3 +22,8 @@ def pad_rows(a: torch.Tensor, n_rows: int, fill=0) -> torch.Tensor:
 def pad_rows_tree(tree, n_rows: int, fill=0):
     """:func:`pad_rows` over every tensor leaf of a tree (NamedTuples too)."""
     return pytree.tree_map(lambda a: pad_rows(a, n_rows, fill), tree)
+
+
+def pad_to_multiple(a: torch.Tensor, m: int, fill=0) -> torch.Tensor:
+    """Pad dim 0 up to the next multiple of ``m`` (the mesh-alignment idiom)."""
+    return pad_rows(a, a.shape[0] + ((-a.shape[0]) % m), fill)

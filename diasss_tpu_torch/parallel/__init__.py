@@ -1,3 +1,5 @@
-"""Host-side parallelism of the port: :mod:`.prefetch` (the overlap of host
-parsing with device work; the JAX package's mesh, ring and
-sequence-parallel modules are ROADMAP A14)."""
+"""Parallelism of the port: the host-side overlap of parsing with device
+work (:mod:`.prefetch`) and the multi-device layer on ``torch.distributed``
+(:mod:`.collectives`, :mod:`.distributed`, :mod:`.shard`, :mod:`.alltoall`,
+:mod:`.seq`, :mod:`.ring`, :mod:`.recovery`, :mod:`.multihost_check`), one
+process per rank."""

@@ -17,7 +17,13 @@ search extent shrinks to the measured residual, and the solve is
 warm-started.  The automatic profile (``config.automatic_config()``) runs
 detection, dense matching, full BA and two re-match rounds.
 
-Not ported yet, and raising with its ROADMAP item: ``mesh_devices`` (A14).
+``mesh_devices=n`` runs the multi-device layer (:mod:`.parallel`) on a
+process group of n ranks, every rank calling ``run_slam`` on the same
+frames: the stacked matchers split the pair axis over the ranks, the NN
+searches of keypoint sets of ``matcher.ring_min_kps`` or more run as the
+ring pass, and the pose graph and full BA are the sequence-parallel
+solvers (``solver_sp_<kind>_solves``); the result is whole on every rank.
+Without a process group of n ranks it raises.
 A survey whose lines differ in ping or bin count runs the same stacked
 stages, its per-frame arrays padded to the longest axes
 (:func:`_stack_padded`).  The per-pair matchers (``stacked=False``) serve
@@ -84,13 +90,21 @@ class SlamResult:
 
 
 def _check_supported(frames, cfg: PipelineConfig) -> None:
-    def todo(what, item):
-        raise NotImplementedError(f"{what} is not ported to diasss_tpu_torch yet (ROADMAP {item})")
-
     if cfg.estimator not in ("two_stage", "full_ba"):
         raise ValueError(f"unknown estimator {cfg.estimator!r}")
-    if cfg.mesh_devices:
-        todo("mesh_devices (multi-device solves and matching)", "A14: multi-device")
+
+
+def _maybe_mesh(cfg: PipelineConfig, device):
+    """The mesh of ``cfg.mesh_devices`` ranks computing on ``device``, or
+    None for one device (``mesh_devices`` unset or at most 1).  Raises
+    without a process group of that many ranks: the JAX package's silent
+    drop to one chip is on ROADMAP's not-to-port list."""
+    n = cfg.mesh_devices
+    if not n or n <= 1:
+        return None
+    from .parallel.shard import make_mesh
+
+    return make_mesh(n, device=device)
 
 
 def _sync(device: torch.device) -> None:
@@ -175,9 +189,12 @@ def _match_pairs_dense(frames, feats, geo_list, pair_ids, cfg: PipelineConfig, m
     if not pair_ids:
         return corres_rows
     if stacked:
+        mesh = _maybe_mesh(cfg, geo_list[0].device)
         results = dense_matching_stacked(pair_ids, [f.img_id for f in frames], feats, [f.norm for f in frames],
-                                         geo_list, cfg.detector, matcher_cfg.dense)
+                                         geo_list, cfg.detector, matcher_cfg.dense, mesh=mesh)
         _count(counters, "match_stacked_pairs", len(pair_ids))
+        if mesh is not None:
+            _count(counters, "match_mesh_devices", mesh.size)
     else:
         res = cfg.detector.geopatch_res
         rasters = {k: world_raster(frames[k].norm, geo_list[k], res) for k in sorted({k for p in pair_ids for k in p})}
@@ -206,7 +223,11 @@ def _match_pairs(frames, feats, geo_list, pair_ids, cfg: PipelineConfig, matcher
     pair in one batch when there are several (one pair takes the per-pair
     matcher).  ``stacked=False`` (online stream): geo patches attached frame
     by frame to the frames in a pair, and one pair at a time.  The path taken
-    is counted in ``counters['match_stacked_pairs' / 'match_perpair_pairs']``."""
+    is counted in ``counters['match_stacked_pairs' / 'match_perpair_pairs']``.
+    With ``cfg.mesh_devices``, the stacked batch splits its pairs over the
+    ranks (``match_mesh_devices``), and keypoint sets of
+    ``matcher.ring_min_kps`` or more go pair by pair through the ring pass
+    (``match_ring_pairs``)."""
     from .features import attach_geo_patch_descriptors, attach_geo_patch_descriptors_batch
     from .matching.robust import robust_matching, robust_matching_stacked
 
@@ -222,20 +243,32 @@ def _match_pairs(frames, feats, geo_list, pair_ids, cfg: PipelineConfig, matcher
             feats = [attach_geo_patch_descriptors(f, frames[k].norm, geo_list[k], cfg.detector) if k in involved
                      else f for k, f in enumerate(feats)]
     corres_rows: Dict[int, list] = {i: [] for i in range(len(frames))}
+    mesh = _maybe_mesh(cfg, geo_list[0].device) if pair_ids else None
+    # keypoint sets of ring_min_kps or more take the ring pass over the mesh
+    # pair by pair: the stacked batch holds a (pairs, K, K) distance tensor,
+    # the ring never more than a (K/n, K/n) block per rank
+    kcap = max((int(f.xy.shape[0]) for f in feats), default=0)
+    if mesh is not None and kcap >= matcher_cfg.ring_min_kps:
+        stacked = False
     if stacked and len(pair_ids) > 1:
         results = robust_matching_stacked(
             pair_ids, [f.img_id for f in frames], feats, geo_list,
-            [int(f.raw.shape[0]) for f in frames], rng, cfg=matcher_cfg,
+            [int(f.raw.shape[0]) for f in frames], rng, cfg=matcher_cfg, mesh=mesh,
         )
         _count(counters, "match_stacked_pairs", len(pair_ids))
+        if mesh is not None:
+            _count(counters, "match_mesh_devices", mesh.size)
     else:
-        results = {
-            (i, j): robust_matching(
+        results = {}
+        for (i, j) in pair_ids:
+            kmax = max(int(feats[i].xy.shape[0]), int(feats[j].xy.shape[0]))
+            ring_mesh = mesh if (mesh is not None and kmax >= matcher_cfg.ring_min_kps) else None
+            if ring_mesh is not None:
+                _count(counters, "match_ring_pairs", 1)
+            results[(i, j)] = robust_matching(
                 frames[i].img_id, frames[j].img_id, feats[i], feats[j], geo_list[i], geo_list[j],
-                int(frames[i].raw.shape[0]), int(frames[j].raw.shape[0]), rng, cfg=matcher_cfg,
+                int(frames[i].raw.shape[0]), int(frames[j].raw.shape[0]), rng, cfg=matcher_cfg, mesh=ring_mesh,
             )
-            for (i, j) in pair_ids
-        }
         _count(counters, "match_perpair_pairs", len(pair_ids))
     for (i, j) in pair_ids:
         m = results[(i, j)]
@@ -347,7 +380,13 @@ def _solve_two_stage(frames, geo_list, kps_pairs, pair_ids, cap, cfg: PipelineCo
         lc_valid=lc_valid, cfg=cfg.pose_graph,
         rng=rng if cfg.pose_graph.init_noise_xyz > 0 else None, device=dev,
     )
-    poses, info = pose_graph.solve_pose_graph(graph, cfg.pose_graph)
+    mesh = _maybe_mesh(cfg, dev)
+    if mesh is not None:
+        from .parallel.seq import seq_pose_graph_solve
+
+        poses, info = seq_pose_graph_solve(mesh, graph, cfg.pose_graph)
+    else:
+        poses, info = pose_graph.solve_pose_graph(graph, cfg.pose_graph)
     _count(counters, f"solver_{info.solver_kind}_solves", 1)
     _sync(dev)
     timings["pose_graph"] = timings.get("pose_graph", 0.0) + time.perf_counter() - t0
@@ -504,8 +543,14 @@ def _solve_full_ba(frames, geo_list, kps_pairs, pair_ids, cfg: PipelineConfig, i
     if init_poses is not None:
         prob = prob._replace(poses0=init_poses)
     n_valid = int(prob.kp_valid.sum())
-    poses, lms, info = full_ba.solve_full_ba(prob, ba_cfg, cfg.kp_noise,
-                                             k_direct_cols=_woodbury_width(prob, n_valid))
+    mesh = _maybe_mesh(cfg, prob.poses0.t.device)
+    if mesh is not None:
+        from .parallel.seq import seq_full_ba_solve
+
+        poses, lms, info = seq_full_ba_solve(mesh, prob, ba_cfg, cfg.kp_noise)
+    else:
+        poses, lms, info = full_ba.solve_full_ba(prob, ba_cfg, cfg.kp_noise,
+                                                 k_direct_cols=_woodbury_width(prob, n_valid))
     _count(counters, f"solver_{info.solver_kind}_solves", 1)
     _sync(poses.t.device)
     timings["full_ba"] = timings.get("full_ba", 0.0) + time.perf_counter() - t0

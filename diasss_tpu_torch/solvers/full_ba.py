@@ -20,7 +20,7 @@ marginal covariances at the solution.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -156,6 +156,17 @@ def _ba_error_from_residuals(r_odo, r_s, r_t, r_pr, huber_delta: float) -> torch
     return 0.5 * (torch.sum(r_odo ** 2) + torch.sum(r_pr ** 2)) + rob
 
 
+class FactorTerms(NamedTuple):
+    """Where :func:`solve_full_ba` reads its sonar factors: the cost, of
+    ``(poses, lms, prob, kp_cfg, huber_delta)``, and the per-correspondence
+    linearization, of ``(pose, lms, sr, sigmas)``.  The default evaluates
+    every factor in this process; :func:`..parallel.shard.sharded_full_ba_solve`
+    passes terms that spread the correspondences over a mesh's ranks."""
+
+    error: Callable = _ba_error
+    sonar: Callable = _sss_factor_terms
+
+
 def kp_segments(prob: BAProblem) -> Tuple[Segments, Segments]:
     """The segment plans of the sonar factors' source and target poses
     (``kp_i``, ``kp_j``); one pair per solve."""
@@ -223,7 +234,8 @@ def _direct_ba_step(prob, g_red, U_chain, D_p, L_ll, Hpl_s, Hpl_t, lam, P: int, 
     return delta
 
 
-def _finish_trial(poses, lms, err, lam, delta_p, Jp_s, Jp_t, Jl_s, Jl_t, g_l, ll_solve, prob, kp_cfg, cfg, P):
+def _finish_trial(poses, lms, err, lam, delta_p, Jp_s, Jp_t, Jl_s, Jl_t, g_l, ll_solve, prob, kp_cfg, cfg, P,
+                  terms: FactorTerms):
     """Landmark back-substitution, retract, LM accept gate."""
     delta_p = delta_p.clone()
     delta_p[0] = 0.0
@@ -235,7 +247,7 @@ def _finish_trial(poses, lms, err, lam, delta_p, Jp_s, Jp_t, Jl_s, Jl_t, g_l, ll
     not_gauge = torch.arange(P, device=delta_p.device) != 0
     new_poses = se3.where(not_gauge, se3.retract(poses, delta_p), poses)
     new_lms = lms + delta_l
-    new_err = _ba_error(new_poses, new_lms, prob, kp_cfg, cfg.huber_delta)
+    new_err = terms.error(new_poses, new_lms, prob, kp_cfg, cfg.huber_delta)
     good = torch.isfinite(new_err) & (new_err < err)
     poses = se3.where(good.expand(P), new_poses, poses)
     lms = torch.where(good, new_lms, lms)
@@ -263,7 +275,8 @@ class _Normal(NamedTuple):
     U_chain: torch.Tensor  # (P-1, 6, 6) odometry couplings (i, i+1)
 
 
-def _normal_blocks(poses, lms, prob: BAProblem, sig_s, sig_t, huber_delta: float, segs) -> _Normal:
+def _normal_blocks(poses, lms, prob: BAProblem, sig_s, sig_t, huber_delta: float, segs,
+                   sonar=_sss_factor_terms) -> _Normal:
     from .pose_graph import _linearize_between
 
     dtype, dev = lms.dtype, lms.device
@@ -271,8 +284,8 @@ def _normal_blocks(poses, lms, prob: BAProblem, sig_s, sig_t, huber_delta: float
     r_o, Ja, Jb = _linearize_between(poses[:-1], poses[1:], prob.odo_meas, prob.odo_sigmas)
 
     pose_i, pose_j = _endpoint_poses(poses, prob)
-    r_s, Jp_s, Jl_s = _sss_factor_terms(pose_i, lms, prob.kp_sr_s, sig_s)
-    r_t, Jp_t, Jl_t = _sss_factor_terms(pose_j, lms, prob.kp_sr_t, sig_t)
+    r_s, Jp_s, Jl_s = sonar(pose_i, lms, prob.kp_sr_s, sig_s)
+    r_t, Jp_t, Jl_t = sonar(pose_j, lms, prob.kp_sr_t, sig_t)
     if prob.kp_i_fix is not None:
         Jp_s = torch.where(prob.kp_i_fix[:, None, None], 0.0, Jp_s)
     if prob.kp_j_fix is not None:
@@ -373,13 +386,13 @@ def _pcg_ba_step(kind: str, prob, segs, nb: _Normal, g_red, D_p, ll_solve, L_ll,
 
 
 def _trial(poses, lms, err, lam, prob: BAProblem, segs, sig_s, sig_t, cfg: FullBAConfig, kp_cfg, kind: str,
-           k_cols):
+           k_cols, terms: FactorTerms):
     """One LM trial; returns (poses, lms, err, lam, CG iterations)."""
     from .pose_graph import _cholesky_or_nan
 
     P = poses.t.shape[0]
     dtype, dev = lms.dtype, lms.device
-    nb = _normal_blocks(poses, lms, prob, sig_s, sig_t, cfg.huber_delta, segs)
+    nb = _normal_blocks(poses, lms, prob, sig_s, sig_t, cfg.huber_delta, segs, terms.sonar)
     L_ll = _cholesky_or_nan(nb.H_ll * (1.0 + lam) + 1e-6 * torch.eye(3, dtype=dtype, device=dev))
 
     def ll_solve(x):  # (K, 3)
@@ -399,11 +412,11 @@ def _trial(poses, lms, err, lam, prob: BAProblem, segs, sig_s, sig_t, cfg: FullB
     else:
         delta_p, cg_k = _pcg_ba_step(kind, prob, segs, nb, g_red, D_p, ll_solve, L_ll, lam, P, cfg)
     return _finish_trial(poses, lms, err, lam, delta_p, nb.Jp_s, nb.Jp_t, nb.Jl_s, nb.Jl_t, nb.g_l, ll_solve,
-                         prob, kp_cfg, cfg, P) + (cg_k,)
+                         prob, kp_cfg, cfg, P, terms) + (cg_k,)
 
 
 def solve_full_ba(prob: BAProblem, cfg: FullBAConfig, kp_cfg, lam0=None, stall0=None,
-                  k_direct_cols: int | None = None):
+                  k_direct_cols: int | None = None, terms: FactorTerms = FactorTerms()):
     """LM with per-trial Schur-eliminated solves; returns (poses, landmarks,
     BAInfo).  A Python loop of trials: the accept/reject and damping update
     stay on the device; the stall flag (two consecutive trials improving the
@@ -413,13 +426,14 @@ def solve_full_ba(prob: BAProblem, cfg: FullBAConfig, kp_cfg, lam0=None, stall0=
     counter (else 0) of a checkpoint (:mod:`..checkpoint`); ``BAInfo.lam``
     is the damping at exit.  ``k_direct_cols``: leading factor slots that
     carry Woodbury columns in the direct step (the padding tail is
-    invalid); None = all K slots."""
+    invalid); None = all K slots.  ``terms``: the sonar factors' cost and
+    linearization (:class:`FactorTerms`)."""
     P = prob.poses0.t.shape[0]
     dtype, dev = prob.poses0.t.dtype, prob.poses0.t.device
     kind = resolve_ba_solver_kind(cfg.preconditioner, P, int(prob.kp_i.shape[0]))
     sig_s = kp_noise_sigmas(prob.kp_sr_s, kp_cfg.sigma_r, kp_cfg.alpha_bw_deg)
     sig_t = kp_noise_sigmas(prob.kp_sr_t, kp_cfg.sigma_r, kp_cfg.alpha_bw_deg)
-    err0 = _ba_error(prob.poses0, prob.lm0, prob, kp_cfg, cfg.huber_delta)
+    err0 = terms.error(prob.poses0, prob.lm0, prob, kp_cfg, cfg.huber_delta)
     poses, lms, err = prob.poses0, prob.lm0, err0
     segs = kp_segments(prob)
     lam = torch.tensor(1e-4 if lam0 is None else float(lam0), dtype=dtype, device=dev)
@@ -427,7 +441,7 @@ def solve_full_ba(prob: BAProblem, cfg: FullBAConfig, kp_cfg, lam0=None, stall0=
     k = cg_total = 0
     while k < cfg.max_iters and stall < 2:
         poses, lms, err2, lam, cg_k = _trial(poses, lms, err, lam, prob, segs, sig_s, sig_t, cfg, kp_cfg, kind,
-                                             k_direct_cols)
+                                             k_direct_cols, terms)
         improved = bool((err - err2) > 1e-6 * torch.clamp(err, min=1e-30))
         err = err2
         k += 1

@@ -20,7 +20,7 @@ not-to-port list and raises.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -121,6 +121,17 @@ def _build_normal_terms(poses: se3.Pose3, graph: PoseGraph):
     r, Ji, Jj = _linearize_between(poses[idx_i], poses[idx_j], meas, sig)
     w = valid[:, None].to(r.dtype)
     return idx_i, idx_j, r * w, Ji * w[..., None], Jj * w[..., None]
+
+
+class FactorTerms(NamedTuple):
+    """Where :func:`solve_pose_graph` reads its factors: the cost and the
+    per-factor linearization, each of ``(poses, graph)``.  The default
+    evaluates every factor in this process;
+    :func:`..parallel.shard.sharded_pose_graph_solve` passes terms that
+    spread the loop closures over a mesh's ranks."""
+
+    error: Callable = graph_error
+    normal_terms: Callable = _build_normal_terms
 
 
 def factor_segments(graph: PoseGraph, P: int) -> Tuple[Segments, Segments]:
@@ -341,7 +352,8 @@ def _pcg_lm_step(kind: str, idx_i, idx_j, segs, Ji, Jj, g, D, lam, P: int, cfg: 
     return _pcg(matvec, -g, precond, cfg.cg_tol, cfg.cg_max_iters)
 
 
-def solve_pose_graph(graph: PoseGraph, cfg: PoseGraphConfig = PoseGraphConfig(), lam0=None, stall0=None):
+def solve_pose_graph(graph: PoseGraph, cfg: PoseGraphConfig = PoseGraphConfig(), lam0=None, stall0=None,
+                     terms: FactorTerms = FactorTerms()):
     """Batched LM on the full pose graph; returns (poses, SolveInfo).
 
     One Python iteration per LM trial (damping *0.3 on accept, *10 on
@@ -350,7 +362,8 @@ def solve_pose_graph(graph: PoseGraph, cfg: PoseGraphConfig = PoseGraphConfig(),
     relative end the solve) costs one host read per trial, and a PCG step
     one per :data:`CG_CHUNK` CG iterations.  ``lam0`` / ``stall0`` resume
     the damping (else 1e-4) and the stall counter (else 0) of a checkpoint
-    (:mod:`..checkpoint`); ``SolveInfo.lam`` is the damping at exit."""
+    (:mod:`..checkpoint`); ``SolveInfo.lam`` is the damping at exit.
+    ``terms``: the cost and the linearization (:class:`FactorTerms`)."""
     P = graph.poses0.t.shape[0]
     L_lc = graph.lc_i.shape[0]
     kind = resolve_pg_solver_kind(cfg.preconditioner, P, L_lc)
@@ -365,13 +378,13 @@ def solve_pose_graph(graph: PoseGraph, cfg: PoseGraphConfig = PoseGraphConfig(),
     segs = factor_segments(graph, P)
 
     poses = graph.poses0
-    err0 = graph_error(poses, graph)
+    err0 = terms.error(poses, graph)
     err = err0
     lam = torch.tensor(1e-4 if lam0 is None else float(lam0), dtype=dtype, device=dev)
     stall = 0 if stall0 is None else int(stall0)
     k = cg_total = 0
     while k < cfg.max_gn_iters and stall < 2:
-        idx_i, idx_j, r, Ji, Jj = _build_normal_terms(poses, graph)
+        idx_i, idx_j, r, Ji, Jj = terms.normal_terms(poses, graph)
         g, D = _gradient_and_diag(segs, r, Ji, Jj)
         lam = torch.clamp(lam, 1e-9, 1e6)
         if kind == "direct":
@@ -380,7 +393,7 @@ def solve_pose_graph(graph: PoseGraph, cfg: PoseGraphConfig = PoseGraphConfig(),
             delta, cg_k = _pcg_lm_step(kind, idx_i, idx_j, segs, Ji, Jj, g, D, lam, P, cfg)
             cg_total += cg_k
         cand = se3.where(not_gauge, se3.retract(poses, delta), poses)
-        new_err = graph_error(cand, graph)
+        new_err = terms.error(cand, graph)
         good = torch.isfinite(new_err) & (new_err < err)
         poses = se3.where(good.expand(P), cand, poses)
         improved = (err - torch.where(good, new_err, err)) > rel_exit_tol * torch.clamp(err, min=1e-30)

@@ -135,6 +135,66 @@ def _cr(D: torch.Tensor, U: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return x
 
 
+def spike_block_tridiag_multi(mesh, D_loc: torch.Tensor, U_loc: torch.Tensor, U_bd: torch.Tensor,
+                              B_rhs: torch.Tensor) -> torch.Tensor:
+    """Exact multi-RHS solve of a block-tridiagonal chain partitioned over
+    the ranks of ``mesh`` (SPIKE), run by every rank on its own block.
+
+    This rank owns ``D_loc`` (B, 6, 6), the couplings ``U_loc`` (B-1, 6, 6)
+    between its rows, ``U_bd`` (6, 6) coupling its last row to the next
+    rank's first (zero on the last rank and across invalid factors) and its
+    right-hand-side rows ``B_rhs`` (B, 6, R).  Steps:
+
+    1. one local multi-RHS cyclic reduction of ``[B_rhs | e_last U_bd |
+       e_first U_prev^T]`` (the two spikes are 12 more columns);
+    2. ``U_bd`` to the next rank (one point-to-point exchange), an
+       all-gather of the first and last rows of the local solutions and
+       spikes: the solve's whole communication;
+    3. every rank solves the same (12n, 12n) reduced boundary system;
+    4. local back-substitution ``x = w - F y_next - G y_prev``.
+
+    Counterpart of ``diasss_tpu.solvers.tridiag.spike_block_tridiag_multi``;
+    the local solve is the port's cyclic reduction on every device, where
+    the JAX package runs a Thomas scan off the TPU."""
+    from ..parallel.collectives import all_gather, ppermute
+
+    B, R = D_loc.shape[0], B_rhs.shape[2]
+    if B < 2:
+        raise ValueError("SPIKE partitioning needs >= 2 rows per rank")
+    n, d = mesh.size, mesh.rank
+    dtype, dev = D_loc.dtype, D_loc.device
+    # left coupling: the previous rank's boundary block (the cyclic pair is
+    # harmless: the last rank's U_bd is zero by contract)
+    U_prev = ppermute(mesh, [U_bd], [(i, (i + 1) % n) for i in range(n)])[0]
+    cols = torch.zeros((B, 6, 12), dtype=dtype, device=dev)
+    cols[B - 1, :, :6] = U_bd
+    cols[0, :, 6:] = U_prev.T
+    W = solve_block_tridiag_multi(D_loc, U_loc, torch.cat([B_rhs, cols], dim=2))
+    w, F, G = W[:, :, :R], W[:, :, R:R + 6], W[:, :, R + 6:]
+
+    Fg = all_gather(mesh, torch.stack([F[0], F[B - 1], G[0], G[B - 1]]))  # (n, 4, 6, 6)
+    wg = all_gather(mesh, torch.stack([w[0], w[B - 1]]))  # (n, 2, 6, R)
+    # reduced system over y = [x_0[0], x_0[B-1], x_1[0], ...]:
+    #   x_d[0]   + F_d[0]   x_{d+1}[0] + G_d[0]   x_{d-1}[B-1] = w_d[0]
+    #   x_d[B-1] + F_d[B-1] x_{d+1}[0] + G_d[B-1] x_{d-1}[B-1] = w_d[B-1]
+    M = torch.zeros((n, 2, 6, n, 2, 6), dtype=dtype, device=dev)
+    eye6 = torch.eye(6, dtype=dtype, device=dev)
+    for k in range(n):
+        for r in range(2):
+            M[k, r, :, k, r, :] = eye6
+            if k + 1 < n:
+                M[k, r, :, k + 1, 0, :] += Fg[k, r]
+            if k >= 1:
+                M[k, r, :, k - 1, 1, :] += Fg[k, 2 + r]
+    y = torch.linalg.solve(M.reshape(12 * n, 12 * n), wg.reshape(12 * n, R)).reshape(n, 2, 6, R)
+    x = w
+    if d + 1 < n:
+        x = x - F @ y[d + 1, 0]
+    if d >= 1:
+        x = x - G @ y[d - 1, 1]
+    return x
+
+
 def block_tridiag_selected_inverse(D: torch.Tensor, U: torch.Tensor) -> torch.Tensor:
     """(P, 6, 6) diagonal blocks of ``T^-1`` for the SPD block-tridiagonal
     ``T`` — selected inversion along the cyclic-reduction levels, no dense

@@ -264,6 +264,11 @@ def test_dense_matching_stacked_close_to_jax(setup):
     rows_o = np.concatenate([ours[p][0] for p in PAIRS])
     rows_r = np.concatenate([ref[p][0] for p in PAIRS])
     assert _row_agreement(rows_o, rows_r) >= 0.95
-    with pytest.raises(NotImplementedError, match="ROADMAP A14"):
-        dense.dense_matching_stacked(PAIRS, [0, 1, 2, 3], tfeats, [f.norm for f in tf], [f.geo for f in tf],
-                                     port_cfg(DCFG), port_cfg(MCFG), mesh=object())
+    # the data-parallel pair axis (ROADMAP A14) on a one-rank mesh: the same rows
+    from diasss_tpu_torch.parallel.collectives import Mesh
+
+    solo = Mesh(group=None, rank=0, size=1, device=torch.device("cpu"), transport="gloo", ranks=(0,))
+    meshed = dense.dense_matching_stacked(PAIRS, [0, 1, 2, 3], tfeats, [f.norm for f in tf], [f.geo for f in tf],
+                                          port_cfg(DCFG), port_cfg(MCFG), mesh=solo)
+    for p in PAIRS:
+        np.testing.assert_array_equal(meshed[p][0], ours[p][0])

@@ -2,8 +2,9 @@
 detected and automatic paths with the pose marginals and the mosaic, one
 online arrival, a checkpointed solve and the diagnostics, the automatic
 path and an online arrival on lines of different bin counts, the native
-reader and the pipelined loader, the CLI with ``--trace``, and the match
-rendering), and the chip smoke test has no CPU path.
+reader and the pipelined loader, the CLI with ``--trace``, the match
+rendering, and the multi-device layer on a one-rank gloo group), and the
+chip smoke test has no CPU path.
 
 Both run in fresh interpreters: this test process has imported jax already
 (tests/conftest.py).
@@ -89,6 +90,27 @@ with tempfile.TemporaryDirectory() as tmp:
     assert os.path.exists(os.path.join(tmp, "trace", "trace.json"))
     img = frames[0].norm.numpy()
     show_annos(1, img, frames[1].norm.numpy(), survey.lines[0].annos, os.path.join(tmp, "annos.png"))
+# the multi-device layer on a one-rank gloo group
+from diasss_tpu_torch.config import MatcherConfig
+from diasss_tpu_torch.geometry import se3
+from diasss_tpu_torch.parallel import alltoall, collectives, distributed, multihost_check, recovery, ring, seq, shard
+from diasss_tpu_torch.solvers.pose_graph import build_chain_graph
+
+with tempfile.TemporaryDirectory() as tmp:
+    distributed.initialize("file://" + os.path.join(tmp, "store"), 1, 0, backend="gloo")
+    mesh = shard.make_mesh(1, device="cpu")
+    assert distributed.heartbeat(mesh) == 1
+    graph = build_chain_graph([survey.lines[0].dr_poses], [2], [100], se3.identity((1,)),
+                              np.full((1, 6), 0.05, np.float32), np.ones(1, bool), device="cpu")
+    assert seq.seq_pose_graph_solve(mesh, graph)[1].solver_kind == "sp_direct"
+    assert seq.seq_full_ba_solve(mesh, prob, auto.full_ba, auto.kp_noise)[2].solver_kind.startswith("sp_")
+    assert recovery.elastic_seq_pose_graph_solve(graph, chunk=2, mesh=mesh, probe=recovery.heartbeat_probe)[2] == []
+    g = torch.rand(8, 2) * 10
+    d = torch.nn.functional.normalize(torch.randn(8, 16), dim=1)
+    ring.ring_geo_nn_search(g, d, torch.ones(8, dtype=torch.bool), g, d, torch.ones(8, dtype=torch.bool),
+                            torch.tensor([0.0, 10.0, 0.0, 10.0]), MatcherConfig(desc_metric="ncc"), False, mesh)
+    alltoall.reshard_rows(mesh, {"k": torch.arange(5)}, torch.zeros(5, dtype=torch.int64))
+    torch.distributed.destroy_process_group()
 leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
 print("JAX_MODULES", leaked)
 pkg = sorted(m for m in sys.modules if m == "diasss_tpu" or m.startswith("diasss_tpu."))

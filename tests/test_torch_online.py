@@ -238,7 +238,8 @@ def test_automatic_stream_matches_jax_after_every_arrival(monkeypatch):
 
 @pytest.mark.parametrize("kwargs, exc, match", [
     (dict(window_frames=1), ValueError, "window_frames must be >= 2"),
-    (dict(cfg=PipelineConfig(mesh_devices=4)), NotImplementedError, "ROADMAP A14"),
+    # ported (ROADMAP A14): without a process group of 4 ranks it names the torchrun line
+    (dict(cfg=PipelineConfig(mesh_devices=4)), RuntimeError, "needs a process group: run under `torchrun --nproc-per-node 4`"),
 ])
 def test_rejected_settings_raise(kwargs, exc, match):
     kw = dict(kwargs)

@@ -112,11 +112,11 @@ def test_detected_run_through_port_detector(detected_runs):
                     pose_graph=PoseGraphConfig(use_anno=False, preconditioner="direct")), "A11"),
     (PipelineConfig(), "A8"),
 ])
-def test_unported_options_raise_naming_roadmap(survey, frames, cfg, item):
+def test_unported_options_raise_naming_roadmap(survey, frames, cfg, item, tmp_path):
     """Options still unported raise, naming their ROADMAP item; those ported
     since (A9: the pose marginals, A7: the PCG family, A11: geo-patch
     descriptors attached for the keypoint matcher, A8: lines of different
-    bin counts) run."""
+    bin counts, A14: the multi-device layer) run."""
     if item in ("A7", "A9"):
         result = run_slam(frames[1], port_cfg(cfg), rng=JaxRng())
         assert torch.isfinite(result.poses.t).all()
@@ -142,8 +142,35 @@ def test_unported_options_raise_naming_roadmap(survey, frames, cfg, item):
         assert result.counters == {"eval_stacked_pairs": len(result.pair_ids), "solver_direct_solves": 1}
         assert result.ate_est <= result.ate_dr
         return
+    if item == "A14":
+        _mesh_run_matches_single_device(survey, frames[1], port_cfg(cfg), tmp_path)
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         run_slam(frames[1], port_cfg(cfg))
+
+
+def _mesh_run_matches_single_device(survey, tf, cfg, tmp_path):
+    """``mesh_devices=4``: four gloo ranks (tests/torch_parallel_worker.py)
+    run the sequence-parallel direct step; the estimate agrees with the
+    single-device run's and is the same on every rank."""
+    import dataclasses
+
+    from torch_parallel_helpers import run_ranks
+
+    gt = [l.gt_poses for l in survey.lines]
+    P = sum(int(f.dr_poses.shape[0]) for f in tf)
+    torch.save(tf, tmp_path / "frames.pt")
+    torch.save(cfg, tmp_path / "cfg.pt")
+    res = run_ranks(tmp_path / "ranks", cfg.mesh_devices, ["slam"],
+                    {"frames_path": str(tmp_path / "frames.pt"), "cfg_path": str(tmp_path / "cfg.pt"),
+                     "noise": JaxRng().normal((P, 6)).numpy(), **{f"gt_{k}": g for k, g in enumerate(gt)}})
+    single = run_slam(tf, dataclasses.replace(cfg, mesh_devices=None), gt_rows_list=gt, rng=JaxRng())
+    for out in res:
+        assert eval(str(out["slam/counters"])) == {"eval_stacked_pairs": len(single.pair_ids),
+                                                   "solver_sp_direct_solves": 1}
+        assert int(out["slam/n_lc"]) == single.n_lc_accepted > 0
+        assert abs(float(out["slam/ate_est"]) - single.ate_est) < 1e-3
+        np.testing.assert_array_equal(out["slam/t"], res[0]["slam/t"])
 
 
 @pytest.fixture(scope="module")
@@ -183,7 +210,8 @@ def test_cli_rejects_unported_flags(survey_dirs, capsys, flags, item, tmp_path, 
     since run: ``--metrics`` without ``--no-marginals`` (A9) reports the
     marginals, ``--online --window`` (A13) streams the lines (one line per
     arrival, the ATE, the per-line estimates; no marginals, no metrics
-    file), ``--detected --descriptor orb`` (A11) matches ORB bits."""
+    file), ``--detected --descriptor orb`` (A11) matches ORB bits; ``--mesh
+    2`` (A14) runs under torchrun, and without it names the torchrun line."""
     from diasss_tpu_torch.cli import main
 
     monkeypatch.chdir(tmp_path)
@@ -208,6 +236,9 @@ def test_cli_rejects_unported_flags(survey_dirs, capsys, flags, item, tmp_path, 
     with pytest.raises(SystemExit) as exc:
         main(survey_dirs + flags)
     assert exc.value.code == 2
+    if item == "A14":  # ported: without torchrun, --mesh names the torchrun line
+        assert "torchrun --nproc-per-node 2 -m diasss_tpu_torch.cli --mesh 2" in capsys.readouterr().err
+        return
     assert f"ROADMAP {item}" in capsys.readouterr().err
 
 
