@@ -69,7 +69,9 @@ Phases (every one asserts; nothing is caught):
     ``solve_full_ba_checkpointed`` in chunks of 5 trials, and again resumed
     from the snapshot of its first chunk, both within 1e-3 m ATE of the
     one-shot solve, the resumed run paying only the remaining trials; the
-    ``determinism_report`` of two one-shot solves;
+    ``determinism_report`` of two one-shot solves; full BA's float32 cost
+    at the one-shot stop against the same cost in float64 (as at the
+    automatic profile's final stop, measured in phase 3);
 12. the orb and geo_patch descriptor families on the detected 3000-pose
     survey with the CLI's settings: warm-up, then a counted pass (one B1
     launch per frame, matches per pair, ``ate_est <= ate_dr + 1e-2``);
@@ -101,15 +103,20 @@ Phases (every one asserts; nothing is caught):
     3k through the ring (``ring_min_kps`` at the keypoint capacity, the
     exclusion radius at 0 on both sides: every NN decision equal to
     ``geo_nn_search``), elastic recovery on the 12k run's pose graph
-    (ranks 2-3 out at chunk 1) and the full-BA stream with a 3-line
-    window; each with its wall beside the one-device wall and each rank's
-    peak memory; and ``multihost_check`` in two OS processes over tcp://.
+    (ranks 2-3 out at chunk 1) with the stops of that graph on one device,
+    2 and 4 ranks held to each other (ROADMAP C17: trials, the largest pose
+    gap in metres and in marginal sigmas, the float32 and float64 cost at
+    each stop) and the full-BA stream with a 3-line window; each with its
+    wall beside the one-device wall and each rank's peak memory; and
+    ``multihost_check`` in two OS processes over tcp://.
 
 The repairs of this round are gated here too: the 12000-pose two-stage
 solve is not capped (its float64 direct step), two automatic passes give
 the same ATE bit for bit, two one-shot 4200-pose full-BA solves are
-identical (``determinism_report``) and the checkpoint's resumed run takes
-the one-shot run's trials (the deterministic segment sums).
+identical (``determinism_report``), the checkpoint's resumed run takes
+the one-shot run's trials (the deterministic segment sums), and the
+12000-pose solve stops at the same point on one device, 2 and 4 ranks
+(ROADMAP C17).
 
 Before the last line it prints the ``kernels`` JSON line (launches from the
 online automatic stream, per phase beside; times, device times and bounds
@@ -162,6 +169,59 @@ CLI_ATE_TOL = 1e-3  # the CLI's metrics against an in-process run on the same fi
 def check(ok: bool, msg: str) -> None:
     if not ok:
         raise AssertionError(msg)
+
+
+def promoted(tree, dtype=torch.float64):
+    """``tree`` (a tensor, None, or a NamedTuple of them) with its floating
+    tensors in ``dtype``."""
+    if tree is None or isinstance(tree, torch.Tensor):
+        return tree.to(dtype) if tree is not None and tree.is_floating_point() else tree
+    return type(tree)(*[promoted(x, dtype) for x in tree])
+
+
+def pose_graph_cost_f32(poses, graph) -> float:
+    """The pose graph's cost formed in float32, as the JAX package forms
+    it, beside the solver's float64 ``graph_error`` (ROADMAP C17)."""
+    from diasss_tpu_torch.factors.between import between_residual
+
+    r_o = between_residual(poses[:-1], poses[1:], graph.odo_meas) / graph.odo_sigmas
+    r_l = between_residual(poses[graph.lc_i], poses[graph.lc_j], graph.lc_meas) / graph.lc_sigmas
+    return float(0.5 * (torch.sum(r_o * r_o) + torch.sum(r_l[graph.lc_valid] ** 2)))
+
+
+@contextlib.contextmanager
+def kept_ba_solves():
+    """Collect ``(prob, cfg, kp_cfg, poses, lms, info)`` of every one-device
+    full-BA solve run inside."""
+    from diasss_tpu_torch.solvers import full_ba
+
+    kept, entry = [], full_ba.solve_full_ba
+
+    def run(prob, cfg, kp_cfg, *args, **kwargs):
+        out = entry(prob, cfg, kp_cfg, *args, **kwargs)
+        kept.append((prob, cfg, kp_cfg) + tuple(out))
+        return out
+
+    full_ba.solve_full_ba = run
+    try:
+        yield kept
+    finally:
+        full_ba.solve_full_ba = entry
+
+
+def ba_cost_gap(label, prob, cfg, kp_cfg, poses, lms, info, card) -> None:
+    """Full BA's cost at a stop, float32 (what its accept test reads)
+    against the same residuals formed in float64 from the promoted inputs,
+    beside the stall rule's 1e-6 of the cost (ROADMAP C17 repaired the pose
+    graph's; full BA's stays float32)."""
+    from diasss_tpu_torch.solvers.full_ba import _ba_error
+
+    e32 = float(_ba_error(poses, lms, prob, kp_cfg, cfg.huber_delta))
+    e64 = float(_ba_error(promoted(poses), promoted(lms), promoted(prob), kp_cfg, cfg.huber_delta))
+    check(np.isfinite(e32) and np.isfinite(e64), f"{label}: non-finite cost at the stop")
+    print(f"[full_ba cost] {label}: {info.iterations} trials, float32 cost {e32:.6f} against {e64:.6f} in float64 "
+          f"at the stop: gap {abs(e32 - e64):.3e} ({abs(e32 - e64) / e64:.2e} of the cost; the stall rule's "
+          f"threshold 1e-6 of the cost is {1e-6 * e64:.3e}) on {card}")
 
 
 def crop_lines(survey, crops):
@@ -879,10 +939,11 @@ def checkpoint_phase(dev, card):
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    ref, _, ref_info = solve()
+    ref, ref_lms, ref_info = solve()
     torch.cuda.synchronize()
     one_s = time.perf_counter() - t0
     _, ate_ref = ate_of(frames, ref, gt)
+    ba_cost_gap(f"full BA {int(ref.t.shape[0])} poses", prob, cfg.full_ba, cfg.kp_noise, ref, ref_lms, ref_info, card)
     save = checkpoint.save_solver_state
     trials = []  # trials done at each snapshot
 
@@ -1144,16 +1205,21 @@ def mesh_label(n: int) -> str:
 
 
 MESH_LABEL = mesh_label(4)
-MESH_GATES = {"anno12k": 1e-2, "ba4k_poses": 3e-3, "ba4k_ate_rel": 0.05, "auto": 0.02, "detected": 1e-2,
-              "elastic": 2e-3, "elastic_sigma": 0.25, "elastic_error_rel": 3e-4, "online": 1e-3}
-# The elastic 12k solve against the uninterrupted 4-rank solve: ATE within
-# "elastic" (m); every pose within "elastic_sigma" of its own marginal
-# standard deviation (pg_pose_marginals at the uninterrupted poses); the
-# final error within "elastic_error_rel" relative.  Not metres: the 12k
-# chain's float32 cost is noisy at its end game (coordinates of hundreds of
-# metres), so any change of arithmetic (one device, 2 or 4 ranks) ends it
-# up to 0.12 m (0.12 sigma) and 7e-5 of the error apart; chunk boundaries on
-# the same ranks move it by 0 (gated exactly).
+MESH_GATES = {"anno12k": 1e-4, "anno12k_dense_seg": 1e-2, "ba4k_poses": 3e-3, "ba4k_ate_rel": 0.05, "auto": 0.02,
+              "detected": 1e-2, "elastic": 1e-4, "elastic_sigma": 0.25, "elastic_error_rel": 1e-7, "online": 1e-3}
+# The 12k pose graph's direct step (ROADMAP C17): its cost, linearization
+# and sums are formed in float64, so one device, 2 and 4 ranks stop after
+# the same trials within 1e-4 m and 1e-7 of the error of each other (on an
+# H100: 3.05e-5 m, one float32 step at 256-512 m, and 4.4e-9): the mesh
+# run's ATE and poses within "anno12k" (m) of the one-device run's; the
+# elastic solve,
+# and the same graph's uninterrupted stops on one device and 2 ranks,
+# within "elastic" (m) of the uninterrupted 4-rank solve, and within
+# "elastic_sigma" of each pose's marginal standard deviation
+# (pg_pose_marginals at the uninterrupted poses), the error within
+# "elastic_error_rel" relative; chunk boundaries on the same ranks move it
+# by 0 (gated exactly).  Before the repair these stops lay up to 0.12 m
+# (0.12 sigma) apart.  The dense_seg pass is float32 PCG: "anno12k_dense_seg".
 
 
 def _spawn(fn, nprocs: int, args: tuple, timeout_s: float, label: str):
@@ -1258,7 +1324,7 @@ def mesh_rank(rank: int, world: int, tmp: str):
     from diasss_tpu_torch.parallel.recovery import elastic_seq_pose_graph_solve, group_mesh
     from diasss_tpu_torch.parallel.seq import seq_pose_graph_solve
     from diasss_tpu_torch.pipeline import _overlap_pairs, _pad_feats_common, run_slam
-    from diasss_tpu_torch.solvers.pose_graph import graph_error, pg_pose_marginals
+    from diasss_tpu_torch.solvers.pose_graph import graph_error, pg_pose_marginals, solve_pose_graph
     from diasss_tpu_torch.synthetic import make_survey
 
     mesh = _rank_setup(rank, world, os.path.join(tmp, "store"), "gloo")
@@ -1316,14 +1382,18 @@ def mesh_rank(rank: int, world: int, tmp: str):
     def elastic():
         """The 12k run's pose graph: solved uninterrupted on all ranks; in
         chunks with every rank kept; uninterrupted on the survivors (ranks
-        0-1) alone; and in chunks with ranks 2-3 gone from chunk 1 on."""
+        0-1) alone; in chunks with ranks 2-3 gone from chunk 1 on; and on
+        one device (rank 0): where the one-device, 2-rank and 4-rank solves
+        stop (ROADMAP C17)."""
         graph, cfg = graph12k[0], PoseGraphConfig()
         whole, info = seq_pose_graph_solve(mesh, graph, cfg)
         chunked, _, _ = elastic_seq_pose_graph_solve(graph, cfg, chunk=5, mesh=mesh, probe=lambda c, ranks: ranks)
         keep = list(range(world // 2))
-        survivors = None
+        survivors = single = None
         if rank in keep:
             survivors, info_s = seq_pose_graph_solve(group_mesh(mesh, keep), graph, cfg)
+        if rank == 0:
+            single, info_1 = solve_pose_graph(graph, cfg)
         torch.distributed.barrier()
 
         def probe(chunk_idx, ranks):
@@ -1338,23 +1408,23 @@ def mesh_rank(rank: int, world: int, tmp: str):
         R = whole.R.double()
         S = R @ cov @ R.transpose(-1, -2) + 1e-12 * torch.eye(3, dtype=torch.float64, device=dev)
 
-        def sigmas(p):
-            d = (p.t - whole.t).double()
+        def sigmas(p, q=whole):
+            d = (p.t - q.t).double()
             return float(torch.sqrt(torch.einsum("pi,pij,pj->p", d, torch.linalg.inv(S), d)).max())
-
-        def f64(x):
-            if isinstance(x, torch.Tensor):
-                return x.double() if x.is_floating_point() else x
-            return type(x)(*[f64(y) for y in x])
 
         out = dict(gap=float((poses.t - whole.t).abs().max()), gap_sigma=sigmas(poses),
                    gap_chunked=float((chunked.t - whole.t).abs().max()), error=float(info_e.error),
                    error_whole=float(info.error), ate=ate_el, ate_whole=ate_whole, ate_gap=abs(ate_el - ate_whole),
-                   cost_f32_noise=abs(float(graph_error(whole, graph)) - float(graph_error(f64(whole), f64(graph)))),
                    events=events, trials=info.iterations, kind=info.solver_kind, survivor=rank in keep)
-        if survivors is not None:
-            out.update(spread=float((survivors.t - whole.t).abs().max()), spread_sigma=sigmas(survivors),
-                       error_survivors=float(info_s.error), trials_survivors=info_s.iterations)
+        if single is not None:  # rank 0 holds all three stops
+            stops = {"1 device": (single, info_1), "2 ranks": (survivors, info_s), "4 ranks": (whole, info)}
+            out["c17"] = {name: dict(trials=i.iterations, error=float(i.error), ate=trajectory_ate_pair(dr, p, gt)[1],
+                                     cost_f64=float(graph_error(p, graph)),
+                                     cost_f32=pose_graph_cost_f32(p, graph))
+                          for name, (p, i) in stops.items()}
+            out["c17_gaps"] = {f"{a} / {b}": dict(m=float((stops[a][0].t - stops[b][0].t).abs().max()),
+                                                   sigma=sigmas(stops[a][0], stops[b][0]))
+                               for a, b in (("1 device", "4 ranks"), ("2 ranks", "4 ranks"), ("1 device", "2 ranks"))}
         return out
 
     cell("elastic 12k", elastic)
@@ -1420,6 +1490,23 @@ def mesh_rank(rank: int, world: int, tmp: str):
     torch.distributed.destroy_process_group()
 
 
+def c17_report(stops, gaps, card, gate) -> None:
+    """Print where the 12k pose-graph solve stopped on one device, 2 and 4
+    ranks (the elastic cell's ``c17`` and ``c17_gaps``) and gate it."""
+    print("[C17] where the 12k pose-graph solve stops, the same graph (the [mesh 4] run's) on one device, 2 and 4 "
+          "ranks (direct step): " + "; ".join(
+              f"{name}: {v['trials']} trials, error {v['error']!r}, ATE {v['ate']!r} m, cost at the stop "
+              f"{v['cost_f64']!r} (float64) / {v['cost_f32']!r} (float32, gap {abs(v['cost_f32'] - v['cost_f64']):.3e})"
+              for name, v in stops.items()) + "; largest pose gaps " + "; ".join(
+              f"{pair} {g['m']:.3e} m = {g['sigma']:.3e} sigma" for pair, g in gaps.items())
+          + f" (gates: the same trials, {MESH_GATES['elastic']} m, {MESH_GATES['elastic_sigma']} sigma, error "
+            f"{MESH_GATES['elastic_error_rel']} relative); {MESH_LABEL}; on {card}")
+    errors = [v["error"] for v in stops.values()]
+    gate(len({v["trials"] for v in stops.values()}) == 1
+         and all(g["m"] <= MESH_GATES["elastic"] and g["sigma"] <= MESH_GATES["elastic_sigma"] for g in gaps.values())
+         and max(errors) - min(errors) <= MESH_GATES["elastic_error_rel"] * min(errors), f"[C17] {stops}, {gaps}")
+
+
 def mesh4_phase(card, refs):
     """The [mesh 4] phase: MESH_N ranks, spawned, all on cuda:0 over gloo;
     each cell's result on every rank against the single-device run of the
@@ -1463,14 +1550,16 @@ def mesh4_phase(card, refs):
                            f"{refs['anno12k']:.4f}, solve error {c['error']:.4f} against {refs['anno12k_error']:.4f}, "
                            f"largest pose gap to the single device {np.abs(anno_t - refs['anno12k_t']).max():.2e} m, "
                            f"capped {c['capped']}, counters {json.dumps(c['counters'])}")
-    gate(abs(c["ate_est"] - refs["anno12k"]) <= MESH_GATES["anno12k"] and not c["capped"]
-          and c["counters"].get("solver_sp_direct_solves") == 1, f"[mesh 4] anno12k direct: {c}")
+    gap = float(np.abs(anno_t - refs["anno12k_t"]).max())
+    gate(abs(c["ate_est"] - refs["anno12k"]) <= MESH_GATES["anno12k"] and gap <= MESH_GATES["anno12k"]
+          and not c["capped"] and c["counters"].get("solver_sp_direct_solves") == 1,
+          f"[mesh 4] anno12k direct: {c}, pose gap {gap}")
     c = r0["anno12k dense_seg"]
     line("anno12k dense_seg", f"ATE {c['ate_est']:.4f} m against the single device's dense_seg pass "
                               f"{refs['anno12k_dense_seg']:.4f} ({refs['anno12k_dense_seg_cg']} CG iterations) and "
                               f"the mesh direct pass's {r0['anno12k direct']['ate_est']:.4f}, counters "
                               f"{json.dumps(c['counters'])}")
-    gate(abs(c["ate_est"] - refs["anno12k_dense_seg"]) <= MESH_GATES["anno12k"]
+    gate(abs(c["ate_est"] - refs["anno12k_dense_seg"]) <= MESH_GATES["anno12k_dense_seg"]
           and c["counters"].get("solver_sp_dense_seg_solves") == 1, f"[mesh 4] anno12k dense_seg: {c}")
     c = r0["ba4k direct"]
     gap = float(np.abs(ba_t - refs["ba4k_t"]).max())
@@ -1506,17 +1595,16 @@ def mesh4_phase(card, refs):
     line("elastic 12k", f"the 12k run's pose graph, ranks 2-3 dropped at chunk 1 (events {c['events']}), against the "
                         f"uninterrupted {c['kind']} solve on {MESH_N} ranks ({c['trials']} trials): ATE {c['ate']:.4f} "
                         f"against {c['ate_whole']:.4f} m, gap {c['ate_gap']:.2e} m (gate {MESH_GATES['elastic']}); "
-                        f"largest pose gap {c['gap']:.2e} m, {c['gap_sigma']:.3f} of the pose's marginal sigma (gate "
-                        f"{MESH_GATES['elastic_sigma']}); error {c['error']:.4f} against {c['error_whole']:.4f} (gate "
-                        f"{MESH_GATES['elastic_error_rel']} relative); chunk boundaries with every rank kept move it "
-                        f"by {c['gap_chunked']:.2e} m (must be 0).  The rank count alone: the uninterrupted solve on "
-                        f"the survivors' {MESH_N // 2} ranks ({c['trials_survivors']} trials, error "
-                        f"{c['error_survivors']:.4f}) lies {c['spread']:.2e} m, {c['spread_sigma']:.3f} sigma from it; "
-                        f"the float32 cost at its poses is {c['cost_f32_noise']:.2e} off its float64 value")
-    gate(c["gap_sigma"] <= MESH_GATES["elastic_sigma"] and c["gap_chunked"] == 0.0
+                        f"largest pose gap {c['gap']:.2e} m (gate {MESH_GATES['elastic']}), {c['gap_sigma']:.3f} of "
+                        f"the pose's marginal sigma (gate {MESH_GATES['elastic_sigma']}); error {c['error']:.6f} "
+                        f"against {c['error_whole']:.6f} (gate {MESH_GATES['elastic_error_rel']} relative); chunk "
+                        f"boundaries with every rank kept move it by {c['gap_chunked']:.2e} m (must be 0)")
+    gate(c["gap"] <= MESH_GATES["elastic"] and c["gap_sigma"] <= MESH_GATES["elastic_sigma"]
+          and c["gap_chunked"] == 0.0
           and abs(c["error"] - c["error_whole"]) <= MESH_GATES["elastic_error_rel"] * c["error_whole"]
           and c["ate_gap"] <= MESH_GATES["elastic"] and [tuple(e) for e in c["events"]] == [(1, MESH_N, MESH_N // 2)],
           f"[mesh 4] elastic: {c}")
+    c17_report(c["c17"], c["c17_gaps"], card, gate)
     c = r0["online ba4k window 3"]
     line("online ba4k window 3", f"final ATE DR/EST {c['ate_dr']:.4f}/{c['ate_est']:.4f} m against the single-device "
                                  f"stream's {refs['online']:.4f} ({c['kind']})")
@@ -1627,11 +1715,13 @@ def main() -> int:
     auto_gt = [l.gt_poses for l in auto_survey.lines]
     recorded, correlate_args = [], []
     # warm-up, records the inputs of B2 and of the dense correlation
-    with solver_infos() as warm_infos:
+    with solver_infos() as warm_infos, kept_ba_solves() as warm_ba:
         warm = auto_run(build_frames(auto_survey, dev), auto_cfg, auto_gt, record=recorded,
                         record_correlate=correlate_args)
     check(len(recorded) >= 1 and len(correlate_args) == len(recorded),
           "the automatic warm-up pass never reached the q-correlation")
+    ba_cost_gap("automatic 1.6k, final solve", *warm_ba[-1], card)
+    del warm_ba
     q_err, q_ms, q_dev_ms, q_dev_by, q_plain_ms, q_lib_ms, q_bound, q_by = qcorr_phase(dev, recorded,
                                                                                       correlate_args)
     del recorded, correlate_args

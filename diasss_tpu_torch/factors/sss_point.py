@@ -22,6 +22,11 @@ def sss_point_residual(point: torch.Tensor, pose: se3.Pose3, sensor: se3.Pose3,
     return torch.stack([rng - measured[..., 0], p_s[..., 0] - measured[..., 1]], dim=-1)
 
 
+def sss_point_whitened(point, pose, sensor, measured, sigmas):
+    """Noise-whitened residual: ``r / sigmas``."""
+    return sss_point_residual(point, pose, sensor, measured) / sigmas
+
+
 def kp_noise_sigmas(slant_range: torch.Tensor, sigma_r: float = 0.1, alpha_bw_deg: float = 0.1) -> torch.Tensor:
     """Diagonal sigmas ``(sigma_r, slant_range * alpha_bw)`` (optimizer.cpp:706-707)."""
     alpha = alpha_bw_deg * math.pi / 180.0

@@ -64,6 +64,11 @@ def transform_to(a: Pose3, p: torch.Tensor) -> torch.Tensor:
     return _apply(a.R.transpose(-1, -2), p - a.t)
 
 
+def transform_from(a: Pose3, p: torch.Tensor) -> torch.Tensor:
+    """Body point -> world frame: ``R p + t``."""
+    return _apply(a.R, p) + a.t
+
+
 def expmap(xi: torch.Tensor) -> Pose3:
     """SE(3) exponential of ``xi = (omega, v)`` (..., 6)."""
     w = xi[..., :3]
@@ -95,6 +100,13 @@ def to_quat_xyzw_t(a: Pose3) -> torch.Tensor:
     """Pose -> ``(qx, qy, qz, qw, x, y, z)`` (the pairwise dump format)."""
     q = so3.to_quaternion(a.R)
     return torch.cat([q[..., 1:], q[..., :1], a.t], dim=-1)
+
+
+def adjoint(a: Pose3) -> torch.Tensor:
+    """Adjoint map (..., 6, 6) in the (omega, v) order: ``[[R, 0], [hat(t) R, R]]``."""
+    top = torch.cat([a.R, torch.zeros_like(a.R)], dim=-1)
+    bottom = torch.cat([so3.hat(a.t) @ a.R, a.R], dim=-1)
+    return torch.cat([top, bottom], dim=-2)
 
 
 def where(mask: torch.Tensor, a: Pose3, b: Pose3) -> Pose3:

@@ -71,6 +71,20 @@ def geo_bbox(geo: torch.Tensor) -> torch.Tensor:
     return torch.stack([x.amin(-1), x.amax(-1), y.amin(-1), y.amax(-1)], dim=-1)
 
 
+def bbox_iou_overlap(geo_a: torch.Tensor, geo_b: torch.Tensor) -> torch.Tensor:
+    """Axis-aligned bbox IoU of two frames' geo extents (util.cpp:13-43);
+    0 where the boxes do not overlap."""
+    ax_min, ax_max, ay_min, ay_max = geo_bbox(geo_a).unbind(-1)
+    bx_min, bx_max, by_min, by_max = geo_bbox(geo_b).unbind(-1)
+    x_ol = torch.minimum(ax_max, bx_max) - torch.maximum(ax_min, bx_min)
+    y_ol = torch.minimum(ay_max, by_max) - torch.maximum(ay_min, by_min)
+    area_ol = x_ol * y_ol
+    area_a = torch.abs(ax_max - ax_min) * torch.abs(ay_max - ay_min)
+    area_b = torch.abs(bx_max - bx_min) * torch.abs(by_max - by_min)
+    iou = area_ol / (area_a + area_b - area_ol)
+    return torch.where((x_ol > 0) & (y_ol > 0), iou, torch.zeros_like(iou))
+
+
 def project_landmark_geo(pose_xy, pose_yaw, col, ground_ranges, n_bins):
     """Geo (x, y) of the pixel at column ``col`` under pose (xy, yaw) — the
     evaluator's re-projection, with the reference's extra ``-pi`` side flip.

@@ -33,12 +33,14 @@ def initialize(init_method: Optional[str] = None, world_size: Optional[int] = No
 
     With no arguments, reads torchrun's environment (``env://``:
     ``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE``, ``RANK``).  ``backend``
-    is ``"nccl"`` (one rank per GPU) or ``"gloo"`` (CPU ranks, or several
-    ranks sharing one GPU); default nccl when CUDA is present.  With nccl
-    the rank's current CUDA device is set to ``LOCAL_RANK`` (else the rank)
-    modulo the device count."""
+    is ``"nccl"`` (one rank per GPU, the default) or ``"gloo"`` (CPU ranks,
+    or several ranks sharing one GPU), never chosen on the caller's behalf:
+    without CUDA the default raises.  With nccl the rank's current CUDA
+    device is set to ``LOCAL_RANK`` (else the rank) modulo the device
+    count."""
     if backend is None:
-        backend = "nccl" if torch.cuda.is_available() else "gloo"
+        _require_cuda('backend="gloo" with a CPU device (--device cpu on the command line)')
+        backend = "nccl"
     kwargs = dict(backend=backend, init_method=init_method or "env://",
                   timeout=datetime.timedelta(seconds=timeout_s))
     if world_size is not None:
@@ -51,12 +53,20 @@ def initialize(init_method: Optional[str] = None, world_size: Optional[int] = No
     dist.init_process_group(**kwargs)
 
 
+def _require_cuda(cpu_choice: str) -> None:
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            f"no CUDA device: the multi-device layer runs on the card unless the caller asks for the CPU; "
+            f"pass {cpu_choice}")
+
+
 def default_device() -> torch.device:
-    """This rank's device: the current CUDA device when CUDA is present
-    (set by :func:`initialize` under nccl), else the CPU."""
-    if torch.cuda.is_available():
-        return torch.device("cuda", torch.cuda.current_device())
-    return torch.device("cpu")
+    """This rank's device: the current CUDA device (set by
+    :func:`initialize` under nccl).  Raises where CUDA is absent: CPU ranks
+    name their device, ``device="cpu"`` (``--device cpu`` on the command
+    line), as every entry point of the port does."""
+    _require_cuda('device="cpu" (--device cpu on the command line)')
+    return torch.device("cuda", torch.cuda.current_device())
 
 
 def global_mesh(device=None) -> Mesh:

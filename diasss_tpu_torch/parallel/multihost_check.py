@@ -23,7 +23,10 @@ the whole group, each held to the rank's own single-device solve:
    watchdog drives on a dead peer) and each rank continues alone from the
    carried state, landing on the uninterrupted optimum.
 
-``nccl`` needs one GPU per rank; ranks that share a GPU use ``gloo``.
+The device defaults to ``cuda:RANK`` (modulo the GPUs present) and the
+backend to ``nccl``; without CUDA the check raises unless ``--device cpu``
+is given, which takes ``gloo``.  ``nccl`` needs one GPU per rank; ranks
+that share a GPU pass ``--backend gloo``.
 """
 
 from __future__ import annotations
@@ -38,8 +41,9 @@ def main(argv=None) -> int:
     parser.add_argument("--init-method", required=True, help="tcp://HOST:PORT or file://PATH")
     parser.add_argument("--world-size", type=int, required=True)
     parser.add_argument("--rank", type=int, required=True)
-    parser.add_argument("--backend", default=None, choices=["nccl", "gloo"])
-    parser.add_argument("--device", default=None, help="this rank's device (default cuda:RANK or cpu)")
+    parser.add_argument("--backend", default=None, choices=["nccl", "gloo"],
+                        help="default nccl on the card, gloo with --device cpu")
+    parser.add_argument("--device", default=None, help="this rank's device (default cuda:RANK; cpu only when given)")
     parser.add_argument("--pings", type=int, default=96)
     args = parser.parse_args(argv)
 
@@ -51,18 +55,17 @@ def main(argv=None) -> int:
     from ..geometry import se3
     from ..solvers.full_ba import BAProblem, solve_full_ba
     from ..solvers.pose_graph import build_chain_graph, solve_pose_graph
-    from .distributed import heartbeat, initialize
+    from .distributed import _require_cuda, heartbeat, initialize
     from .recovery import elastic_seq_pose_graph_solve
     from .seq import seq_full_ba_solve, seq_pose_graph_solve
     from .shard import make_mesh
 
-    backend = args.backend or ("nccl" if torch.cuda.is_available() else "gloo")
     if args.device is not None:
         device = torch.device(args.device)
-    elif torch.cuda.is_available():
-        device = torch.device("cuda", args.rank % torch.cuda.device_count())
     else:
-        device = torch.device("cpu")
+        _require_cuda("--device cpu")
+        device = torch.device("cuda", args.rank % torch.cuda.device_count())
+    backend = args.backend or ("gloo" if device.type == "cpu" else "nccl")
     if device.type == "cuda":
         torch.cuda.set_device(device)
         torch.backends.cuda.matmul.allow_tf32 = False

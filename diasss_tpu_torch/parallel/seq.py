@@ -49,7 +49,8 @@ from ..geometry import se3
 from ..segments import segments
 from ..solvers.full_ba import BAInfo, BAProblem, _ba_error_from_residuals, _huber_weight, _sss_factor_terms
 from ..solvers.lm import cholesky_solve_or_nan
-from ..solvers.pose_graph import CG_CHUNK, PoseGraph, SolveInfo, _cholesky_or_nan, _linearize_between, woodbury_columns
+from ..solvers.pose_graph import (CG_CHUNK, PoseGraph, SolveInfo, _cholesky_or_nan, _linearize_between, _linearize_f64,
+                                  cost_residual, woodbury_columns)
 from ..solvers.tridiag import (apply_dense_segment_inverses, auto_dense_segment, dense_segment_inverses,
                                solve_block_tridiag_segmented, spike_block_tridiag_multi)
 from .collectives import Mesh, all_gather, all_to_all, ppermute, psum, psum_ordered
@@ -281,6 +282,13 @@ def _pcg_dist(mesh: Mesh, matvec, b: torch.Tensor, precond, tol: float, max_iter
     return x, n_iters
 
 
+def to_host(x: torch.Tensor) -> np.ndarray:
+    """A result as host numpy.  Every rank holds the whole result of a mesh
+    solve, so nothing is gathered here (the JAX package gathers an array
+    sharded over a multi-host mesh)."""
+    return x.detach().cpu().numpy()
+
+
 def _lm_update(good, lam):
     return torch.where(good, torch.clamp(lam * 0.3, min=1e-9), torch.clamp(lam * 10.0, max=1e6))
 
@@ -316,11 +324,11 @@ def _seq_pg_run(mesh: Mesh, poses0, odo_meas, graph: PoseGraph, lam0: float, sta
         """The rows this rank owns of per-loop-closure terms at each endpoint."""
         return seg_i.sum(vi)[:B] + seg_j.sum(vj)[:B]
 
-    def error(p):
-        r_o = between_residual(p, ch.shifted_poses(p), odo_blk) / graph.odo_sigmas
+    def error(p):  # float64, as pose_graph.graph_error
+        r_o = cost_residual(p, ch.shifted_poses(p), odo_blk, graph.odo_sigmas)
         r_o = torch.where(ch.odo_valid[:, None], r_o, 0.0)
         xi, xj = gather_lc_poses(p)
-        r_l = between_residual(xi, xj, graph.lc_meas) / graph.lc_sigmas
+        r_l = cost_residual(xi, xj, graph.lc_meas, graph.lc_sigmas)
         r_l = torch.where(graph.lc_valid[:, None], r_l, 0.0)  # the same on every rank
         return 0.5 * (psum_ordered(mesh, torch.sum(r_o * r_o)) + torch.sum(r_l * r_l))
 
@@ -349,17 +357,21 @@ def _seq_pg_run(mesh: Mesh, poses0, odo_meas, graph: PoseGraph, lam0: float, sta
         return ch.fix_vec(w0 - Wv @ y).to(dtype)
 
     def trial(p, err, lam):
-        r_o, Ji, Jj = _linearize_between(p, ch.shifted_poses(p), odo_blk, sig_b)
+        r_o, Ji, Jj = _linearize_f64(p, ch.shifted_poses(p), odo_blk, sig_b)
         w = ch.odo_valid[:, None].to(dtype)
         r_o, Ji, Jj = r_o * w, Ji * w[..., None], Jj * w[..., None]
         xl_i, xl_j = gather_lc_poses(p)
-        r_l, Jli, Jlj = _linearize_between(xl_i, xl_j, graph.lc_meas, graph.lc_sigmas)
+        r_l, Jli, Jlj = _linearize_f64(xl_i, xl_j, graph.lc_meas, graph.lc_sigmas)
         wl = graph.lc_valid[:, None].to(dtype)
         r_l, Jli, Jlj = r_l * wl, Jli * wl[..., None], Jlj * wl[..., None]
 
-        g, D_chain = ch.chain_sum([_tmv(Ji, r_o), _tmm(Ji, Ji)], [_tmv(Jj, r_o), _tmm(Jj, Jj)])
-        g = ch.fix_vec(g + scatter_lc(_tmv(Jli, r_l), _tmv(Jlj, r_l)))
-        D = ch.fix_blocks(D_chain + scatter_lc(_tmm(Jli, Jli), _tmm(Jlj, Jlj)))
+        # the direct step sums g and D in float64, as the one-device solve
+        # does: float32 sums round differently on every partition (C17)
+        acc = torch.float64 if kind == "direct" else dtype
+        a_o, b_o, a_l, b_l, c_l = (x.to(acc) for x in (Ji, Jj, Jli, Jlj, r_l))
+        g, D_chain = ch.chain_sum([_tmv(a_o, r_o.to(acc)), _tmm(a_o, a_o)], [_tmv(b_o, r_o.to(acc)), _tmm(b_o, b_o)])
+        g = ch.fix_vec(g + scatter_lc(_tmv(a_l, c_l), _tmv(b_l, c_l)))
+        D = ch.fix_blocks(D_chain + scatter_lc(_tmm(a_l, a_l), _tmm(b_l, b_l)))
 
         if kind == "direct":
             delta, cg_k = direct_step(g, D, Ji, Jj, Jli, Jlj, lam), 0

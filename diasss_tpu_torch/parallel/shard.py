@@ -39,7 +39,8 @@ from .collectives import Mesh, all_gather
 def make_mesh(n_devices: int | None = None, device=None, group=None) -> Mesh:
     """The mesh of ``n_devices`` ranks: every rank of ``group`` (default
     the default group), computing on ``device`` (default the rank's CUDA
-    device, else the CPU).
+    device; without CUDA the default raises, so CPU ranks pass
+    ``device="cpu"``).
 
     Raises without a process group, and when the group does not hold
     exactly ``n_devices`` ranks: the JAX package's silent drop to one chip
@@ -96,26 +97,24 @@ def _pose_graph_terms(mesh: Mesh):
     (a mesh multiple) data-parallel: each rank evaluates and linearizes its
     block; the cost's blocks are summed in rank order, the per-factor
     terms all-gathered; the odometry chain on every rank."""
-    from ..factors.between import between_residual
     from ..solvers import pose_graph as pg
     from .collectives import psum_ordered
 
-    def error(poses, graph):
-        r_odo = between_residual(poses[:-1], poses[1:], graph.odo_meas) / graph.odo_sigmas
+    def error(poses, graph):  # float64, as pg.graph_error
+        r_odo = pg.cost_residual(poses[:-1], poses[1:], graph.odo_meas, graph.odo_sigmas)
         blk = block_of(mesh, int(graph.lc_i.shape[0]))
-        r_lc = between_residual(poses[graph.lc_i[blk]], poses[graph.lc_j[blk]], graph.lc_meas[blk]) / \
-            graph.lc_sigmas[blk]
+        r_lc = pg.cost_residual(poses[graph.lc_i[blk]], poses[graph.lc_j[blk]], graph.lc_meas[blk],
+                                graph.lc_sigmas[blk])
         r_lc = torch.where(graph.lc_valid[blk][:, None], r_lc, torch.zeros_like(r_lc))
         return 0.5 * (torch.sum(r_odo * r_odo) + psum_ordered(mesh, torch.sum(r_lc * r_lc)))
 
     def normal_terms(poses, graph):
         P, dev, L = poses.t.shape[0], poses.t.device, int(graph.lc_i.shape[0])
         ar = torch.arange(P, device=dev)
-        r_o, Ji_o, Jj_o = pg._linearize_between(poses[:-1], poses[1:], graph.odo_meas,
-                                                graph.odo_sigmas.expand(P - 1, 6))
+        r_o, Ji_o, Jj_o = pg._linearize_f64(poses[:-1], poses[1:], graph.odo_meas, graph.odo_sigmas.expand(P - 1, 6))
         blk = block_of(mesh, L)
-        lc = pg._linearize_between(poses[graph.lc_i[blk]], poses[graph.lc_j[blk]], graph.lc_meas[blk],
-                                   graph.lc_sigmas[blk])
+        lc = pg._linearize_f64(poses[graph.lc_i[blk]], poses[graph.lc_j[blk]], graph.lc_meas[blk],
+                               graph.lc_sigmas[blk])
         w = graph.lc_valid[blk][:, None].to(r_o.dtype)
         r_l, Ji_l, Jj_l = gather_rows(mesh, (lc[0] * w, lc[1] * w[..., None], lc[2] * w[..., None]), L)
         return (torch.cat([ar[:-1], graph.lc_i]), torch.cat([ar[1:], graph.lc_j]), torch.cat([r_o, r_l]),

@@ -76,6 +76,10 @@ class SlamResult:
     # ``marginals`` is set, else None
     pose_sigmas: Optional[np.ndarray] = None
 
+    def frame_poses(self, f: int) -> se3.Pose3:
+        """The estimated poses of frame ``f``."""
+        return self.poses[self.frame_slices[f]]
+
     def summary(self) -> Dict[str, float]:
         total_pings = int(self.poses.t.shape[0])
         wall = sum(self.timings.values())

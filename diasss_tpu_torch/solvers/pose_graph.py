@@ -53,8 +53,8 @@ class PoseGraph(NamedTuple):
 
 
 class SolveInfo(NamedTuple):
-    error0: torch.Tensor  # () graph error at the initial values
-    error: torch.Tensor  # () graph error at the solution
+    error0: torch.Tensor  # () float64 graph error at the initial values
+    error: torch.Tensor  # () float64 graph error at the solution
     iterations: int  # LM trials run
     stall: int  # consecutive trials without relative improvement at exit
     cg_iters_total: int = 0  # CG iterations over all trials (0 for the direct step)
@@ -81,13 +81,34 @@ def resolve_pg_solver_kind(preconditioner: str, P: int, L_lc: int) -> str:
     return kind
 
 
+def cost_residual(xi: se3.Pose3, xj: se3.Pose3, meas: se3.Pose3, sigmas: torch.Tensor) -> torch.Tensor:
+    """(..., 6) whitened between residual in float64, the poses and the
+    measurement promoted before the residual is formed.
+
+    The LM's accept test and stall rule read the cost built from these.  In
+    float32, ``between`` rounds ``R^T t`` at the poses' distance from the
+    origin (float32 spacing is 6e-5 m at 500 m, against odometry sigmas of
+    1e-3 m), and on a 12,000-pose chain that rounding reaches the size of
+    the last LM decreases: where the solve stopped then depended on the
+    arithmetic (one device, 2 or 4 ranks).  Casting a float32 residual
+    afterwards would keep that rounding."""
+    f64 = torch.float64
+    return between_residual(_promoted(xi, f64), _promoted(xj, f64), _promoted(meas, f64)) / sigmas.to(f64)
+
+
+def _promoted(p: se3.Pose3, dtype: torch.dtype) -> se3.Pose3:
+    return se3.Pose3(p.R.to(dtype), p.t.to(dtype))
+
+
 def _whitened_residuals(poses: se3.Pose3, graph: PoseGraph):
-    r_odo = between_residual(poses[:-1], poses[1:], graph.odo_meas) / graph.odo_sigmas
-    r_lc = between_residual(poses[graph.lc_i], poses[graph.lc_j], graph.lc_meas) / graph.lc_sigmas
+    r_odo = cost_residual(poses[:-1], poses[1:], graph.odo_meas, graph.odo_sigmas)
+    r_lc = cost_residual(poses[graph.lc_i], poses[graph.lc_j], graph.lc_meas, graph.lc_sigmas)
     return r_odo, torch.where(graph.lc_valid[:, None], r_lc, torch.zeros_like(r_lc))
 
 
 def graph_error(poses: se3.Pose3, graph: PoseGraph) -> torch.Tensor:
+    """The graph's cost ``0.5 * sum ||r||^2`` in float64
+    (:func:`cost_residual`); the JAX package's is float32."""
     r_odo, r_lc = _whitened_residuals(poses, graph)
     return 0.5 * (torch.sum(r_odo * r_odo) + torch.sum(r_lc * r_lc))
 
@@ -107,6 +128,19 @@ def _linearize_between(xi: se3.Pose3, xj: se3.Pose3, meas: se3.Pose3, sigmas: to
     return r, J[..., :6], J[..., 6:]
 
 
+def _linearize_f64(xi: se3.Pose3, xj: se3.Pose3, meas: se3.Pose3, sigmas: torch.Tensor):
+    """:func:`_linearize_between` formed in float64 from the promoted poses
+    and rounded to their dtype (float32): the pose graph's linearization.
+    Formed in float32, the residual carries the rounding of ``R^T t`` at
+    hundreds of metres, and the values depend on how a batch is laid out
+    (one device, or each rank's block), so the steps of the end game, and
+    with them where the solve stops, differed between one device and 2 or 4
+    ranks (ROADMAP C17); rounded once from float64 they are the same."""
+    out = _linearize_between(_promoted(xi, torch.float64), _promoted(xj, torch.float64),
+                             _promoted(meas, torch.float64), sigmas.to(torch.float64))
+    return tuple(x.to(xi.t.dtype) for x in out)
+
+
 def _build_normal_terms(poses: se3.Pose3, graph: PoseGraph):
     """Per-factor whitened Jacobians, residuals and index arrays (odometry
     factors first, then loop closures; invalid LC slots zeroed)."""
@@ -118,7 +152,7 @@ def _build_normal_terms(poses: se3.Pose3, graph: PoseGraph):
     meas = se3.cat([graph.odo_meas, graph.lc_meas])
     sig = torch.cat([graph.odo_sigmas.expand(P - 1, 6), graph.lc_sigmas])
     valid = torch.cat([torch.ones(P - 1, dtype=torch.bool, device=dev), graph.lc_valid])
-    r, Ji, Jj = _linearize_between(poses[idx_i], poses[idx_j], meas, sig)
+    r, Ji, Jj = _linearize_f64(poses[idx_i], poses[idx_j], meas, sig)
     w = valid[:, None].to(r.dtype)
     return idx_i, idx_j, r * w, Ji * w[..., None], Jj * w[..., None]
 
@@ -230,7 +264,12 @@ def _direct_lm_step(graph, Ji, Jj, g, D, lam, P: int, L_lc: int):
     Couplings to pose 0 are zeroed so ``delta[0] == 0`` exactly.
 
     Both solves run in float64 from the float32 blocks, and the step is
-    returned in float32.  An odometry chain's Hessian is a 1-D Laplacian
+    returned in the Jacobians' dtype (float32).  ``g`` and ``D`` may be
+    float64: :func:`solve_pose_graph` sums them in float64 from the float32
+    per-factor terms, since float32 sums taken in another order (2 or 4
+    ranks, :mod:`..parallel.seq`) round ``g`` differently, and the chain
+    amplifies that rounding into steps that differ at the end game (ROADMAP
+    C17).  An odometry chain's Hessian is a 1-D Laplacian
     whose condition grows like P^2 as the damping falls: on a 12,000-pose
     chain at the damping floor a float32 reduction's step lies 30% of its
     scale away from the float64 solve (tests/test_torch_solvers.py), and the
@@ -239,7 +278,7 @@ def _direct_lm_step(graph, Ji, Jj, g, D, lam, P: int, L_lc: int):
     from .lm import cholesky_solve_or_nan
     from .tridiag import solve_block_tridiag_multi
 
-    dtype, dev = torch.float64, D.device
+    dtype, dev, out = torch.float64, D.device, Ji.dtype
     eye6 = torch.eye(6, dtype=dtype, device=dev)
     Ji, Jj = Ji.to(dtype), Jj.to(dtype)
     U, D_odo = _odometry_chain(Ji, Jj, P)
@@ -248,7 +287,7 @@ def _direct_lm_step(graph, Ji, Jj, g, D, lam, P: int, L_lc: int):
     if L_lc == 0:
         delta = solve_block_tridiag_multi(T_diag, U, rhs)[..., 0]
         delta[0] = 0.0
-        return delta.to(D.dtype)
+        return delta.to(out)
 
     cols_i, cols_j = _lc_columns(graph, Ji, Jj, P)
     V = woodbury_columns(cols_i, cols_j, graph.lc_i, graph.lc_j, P)
@@ -259,7 +298,7 @@ def _direct_lm_step(graph, Ji, Jj, g, D, lam, P: int, L_lc: int):
     y = cholesky_solve_or_nan(0.5 * (C + C.T), c0)
     delta = w0 - Wv @ y
     delta[0] = 0.0
-    return delta.to(D.dtype)
+    return delta.to(out)
 
 
 def _make_matvec(idx_i, idx_j, segs, Ji, Jj, lam, D):
@@ -363,7 +402,9 @@ def solve_pose_graph(graph: PoseGraph, cfg: PoseGraphConfig = PoseGraphConfig(),
     one per :data:`CG_CHUNK` CG iterations.  ``lam0`` / ``stall0`` resume
     the damping (else 1e-4) and the stall counter (else 0) of a checkpoint
     (:mod:`..checkpoint`); ``SolveInfo.lam`` is the damping at exit.
-    ``terms``: the cost and the linearization (:class:`FactorTerms`)."""
+    ``terms``: the cost and the linearization (:class:`FactorTerms`).  The
+    cost, and so ``SolveInfo.error``, is float64 (:func:`cost_residual`);
+    the poses, Jacobians and steps stay float32."""
     P = graph.poses0.t.shape[0]
     L_lc = graph.lc_i.shape[0]
     kind = resolve_pg_solver_kind(cfg.preconditioner, P, L_lc)
@@ -385,11 +426,12 @@ def solve_pose_graph(graph: PoseGraph, cfg: PoseGraphConfig = PoseGraphConfig(),
     k = cg_total = 0
     while k < cfg.max_gn_iters and stall < 2:
         idx_i, idx_j, r, Ji, Jj = terms.normal_terms(poses, graph)
-        g, D = _gradient_and_diag(segs, r, Ji, Jj)
         lam = torch.clamp(lam, 1e-9, 1e6)
         if kind == "direct":
+            g, D = _gradient_and_diag(segs, r.double(), Ji.double(), Jj.double())
             delta = _direct_lm_step(graph, Ji, Jj, g, D, lam, P, L_lc)
         else:
+            g, D = _gradient_and_diag(segs, r, Ji, Jj)
             delta, cg_k = _pcg_lm_step(kind, idx_i, idx_j, segs, Ji, Jj, g, D, lam, P, cfg)
             cg_total += cg_k
         cand = se3.where(not_gauge, se3.retract(poses, delta), poses)

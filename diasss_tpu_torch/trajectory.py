@@ -2,6 +2,7 @@
 
 * :func:`save_poses_rpy` — ``r p y x y z`` rows (optimizer.cpp:1181-1182).
 * :func:`save_poses_quat` — ``qx qy qz qw x y z`` rows (optimizer.cpp:1119-1121).
+* :func:`load_poses_rpy` — the rows of a :func:`save_poses_rpy` file.
 """
 
 from __future__ import annotations
@@ -27,3 +28,7 @@ def save_poses_rpy(path: str, poses: se3.Pose3):
 def save_poses_quat(path: str, poses: se3.Pose3):
     _write(path, se3.to_quat_xyzw_t(poses).cpu().numpy())
 
+
+def load_poses_rpy(path: str) -> np.ndarray:
+    """(P, 6) ``r p y x y z`` rows of a :func:`save_poses_rpy` file."""
+    return np.loadtxt(path).reshape(-1, 6)

@@ -6,7 +6,15 @@ Tolerances, and why:
 * a pose-graph solve started at a given damping and stall count, against
   the JAX package's on the same graph, both on the direct step: poses and
   the final damping 1e-4 (the LM decisions are the same; the chain solves
-  sum in another order), trials and the stall count equal;
+  sum in another order), trials and the stall count equal.  The port's
+  accept test reads a float64 cost (ROADMAP C17), the JAX package's a
+  float32 one, so each case runs only trials whose cost decreases float32
+  resolves (above the float32 spacing of the cost), and asserts so;
+* the default start run to its stall exit: trials, the stall count and
+  poses as above.  Its last accepted decrease (8e-11) lies below the
+  float32 spacing, so the JAX package rejects that trial (damping *10)
+  where the port accepts it (*0.3): the port's damping is JAX's times
+  0.03, to 1e-4;
 * a full-BA solve started the same way, both on ``dense_seg`` PCG: poses
   1e-4 m, trials within one;
 * chunked against one-shot in the port: the same trials and bit-identical
@@ -78,15 +86,50 @@ def ba_problems():
     return prob, to_torch(prob, device="cpu"), cfg.kp_noise
 
 
-@pytest.mark.parametrize("lam0, stall0", [(None, None), (1e-2, 0), (3e-3, 1)])
-def test_pose_graph_resume_matches_jax(graphs, lam0, stall0):
+def _port_solve_with_costs(tg, cfg, lam0=None, stall0=None):
+    """The port's solve and its accepted trials as ``(cost before, cost
+    decrease)`` pairs, read from the cost it evaluates at the start and at
+    every trial's candidate."""
+    costs = []
+
+    def error(poses, graph):
+        costs.append(pose_graph.graph_error(poses, graph))
+        return costs[-1]
+
+    tp, ti = pose_graph.solve_pose_graph(tg, port_cfg(cfg), lam0=lam0, stall0=stall0,
+                                         terms=pose_graph.FactorTerms(error=error))
+    err, accepted = float(costs[0]), []
+    for cand in map(float, costs[1:]):
+        if cand < err:
+            accepted.append((err, err - cand))
+            err = cand
+    return tp, ti, accepted
+
+
+@pytest.mark.parametrize("lam0, stall0, trials", [pytest.param(None, None, 3, id="None-None"),
+                                                  pytest.param(1e-2, 0, 6, id="0.01-0"),
+                                                  pytest.param(3e-3, 1, 6, id="0.003-1")])
+def test_pose_graph_resume_matches_jax(graphs, lam0, stall0, trials):
     jg, tg = graphs
-    cfg = dataclasses.replace(PG_CFG, max_gn_iters=6)
+    cfg = dataclasses.replace(PG_CFG, max_gn_iters=trials)
     jp, ji = jpg.solve_pose_graph(jg, cfg, lam0=lam0, stall0=stall0)
-    tp, ti = pose_graph.solve_pose_graph(tg, port_cfg(cfg), lam0=lam0, stall0=stall0)
+    tp, ti, accepted = _port_solve_with_costs(tg, cfg, lam0, stall0)
+    assert accepted and all(d > np.spacing(np.float32(e)) for e, d in accepted), accepted
     assert ti.iterations == int(ji.iterations) and ti.stall == int(ji.stall)
     np.testing.assert_allclose(tp.t.numpy(), np.asarray(jp.t), atol=1e-4)
     np.testing.assert_allclose(float(ti.lam), float(ji.lam), rtol=1e-4)
+
+
+def test_pose_graph_stall_exit_matches_jax(graphs):
+    jg, tg = graphs
+    cfg = dataclasses.replace(PG_CFG, max_gn_iters=6)
+    jp, ji = jpg.solve_pose_graph(jg, cfg)
+    tp, ti, accepted = _port_solve_with_costs(tg, cfg)
+    assert ti.iterations == int(ji.iterations) < cfg.max_gn_iters and ti.stall == int(ji.stall) == 2
+    np.testing.assert_allclose(tp.t.numpy(), np.asarray(jp.t), atol=1e-4)
+    err, dec = accepted[-1]
+    assert dec < np.spacing(np.float32(err)), accepted
+    np.testing.assert_allclose(float(ti.lam), float(ji.lam) * 0.3 / 10.0, rtol=1e-4)
 
 
 @pytest.mark.parametrize("lam0, stall0", [(1e-2, 1)])

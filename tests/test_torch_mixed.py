@@ -27,14 +27,19 @@ Tolerances, and why:
 * the two-stage stream's arrival of the narrower line's pair: 1e-3 m
   (test_torch_online.py), or, where the two LMs stop after different trial
   counts, a final graph error no higher than the JAX package's and 5e-3 m:
-  there the JAX package stalls after 7 trials at 35.99921 and the port after
-  9 at 35.99778, 2.2e-3 m apart (with a float32 direct step too: 1.9e-3 m).
+  there the JAX package stalls after 7 trials at 35.99921 (float32) and the
+  port after 8 at 35.99840 (float64), 2.1e-3 m apart.  Both errors are
+  evaluated on the port's graph in float64, the cost the port's accept
+  test reads since ROADMAP C17 (on the first arrival, the DR chain alone,
+  the JAX package's float32 cost rounds to 0 and the port's float64 cost
+  is 1.4e-6 after 3 trials against the JAX package's 2).
 """
 
 import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 from torch_parity_helpers import JaxRng, crop_lines, jax_and_port_frames, port_cfg
 from diasss_tpu import online as jonline
@@ -46,8 +51,10 @@ from diasss_tpu.pipeline import run_slam as jax_run_slam
 from diasss_tpu.synthetic import make_survey
 from diasss_tpu_torch import online
 from diasss_tpu_torch.features import detect_features
+from diasss_tpu_torch.geometry import se3
 from diasss_tpu_torch.matching import dense
 from diasss_tpu_torch.pipeline import run_slam
+from diasss_tpu_torch.solvers import pose_graph
 
 CROPS = {0: 8, 2: 16}
 TIE_CROPS = {0: 24, 2: 48}
@@ -208,18 +215,36 @@ def test_automatic_profile_matches_jax(tie_survey, tie_frames, feats):
     assert ours.ate_est < ours.ate_dr
 
 
-def test_two_stage_stream_matches_jax_after_every_arrival(frames):
-    """The first two lines (240 and 256 bins) arrive in turn."""
+def test_two_stage_stream_matches_jax_after_every_arrival(frames, monkeypatch):
+    """The first two lines (240 and 256 bins) arrive in turn.  Where the
+    trial counts differ, the port's stop is no worse than the JAX
+    package's: both costs evaluated on the port's graph in float64 (the
+    port's accept test reads that cost, ROADMAP C17; the JAX package's
+    float32 cost of the first arrival's DR chain rounds to 0)."""
     jf, tf = frames
+    graphs = []
+    entry = pose_graph.solve_pose_graph
+
+    def solve(graph, *args, **kwargs):
+        graphs.append(graph)
+        return entry(graph, *args, **kwargs)
+
+    monkeypatch.setattr(pose_graph, "solve_pose_graph", solve)
     j = jonline.OnlineSlam(ANNOTATED)
     p = online.OnlineSlam(port_cfg(ANNOTATED), device="cpu")
     for k, (a, b) in enumerate(zip(jf[:2], tf[:2])):
-        jt, tt = np.asarray(j.add_frame(a).t), p.add_frame(b).t.numpy()
+        jposes, tposes = j.add_frame(a), p.add_frame(b)
+        jt, tt = np.asarray(jposes.t), tposes.t.numpy()
         assert tt.shape == jt.shape == (200 * (k + 1), 3)
         assert p.state.n_lc == j.state.n_lc
         gap = float(np.abs(tt - jt).max())
         if p._last_info.iterations == int(j._last_info.iterations):
             assert gap <= 1e-3, (k, gap)
         else:
-            assert float(p._last_info.error) <= float(j._last_info.error) * (1 + 1e-6) and gap <= 5e-3, (k, gap)
+            g, n = graphs[-1], len(tt)  # the real poses' factors of a chain padded to its bucket
+            g = g._replace(poses0=g.poses0[:n], odo_meas=g.odo_meas[:n - 1])
+            ours = float(pose_graph.graph_error(tposes, g))
+            theirs = float(pose_graph.graph_error(se3.Pose3(torch.as_tensor(np.asarray(jposes.R)),
+                                                            torch.as_tensor(jt)), g))
+            assert ours <= theirs * (1 + 1e-6) and gap <= 5e-3, (k, gap, ours, theirs)
     assert p.state.n_lc > 0

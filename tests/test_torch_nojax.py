@@ -104,7 +104,8 @@ with tempfile.TemporaryDirectory() as tmp:
                               np.full((1, 6), 0.05, np.float32), np.ones(1, bool), device="cpu")
     assert seq.seq_pose_graph_solve(mesh, graph)[1].solver_kind == "sp_direct"
     assert seq.seq_full_ba_solve(mesh, prob, auto.full_ba, auto.kp_noise)[2].solver_kind.startswith("sp_")
-    assert recovery.elastic_seq_pose_graph_solve(graph, chunk=2, mesh=mesh, probe=recovery.heartbeat_probe)[2] == []
+    beat = lambda c, ranks: recovery.heartbeat_probe(c, ranks, mesh=mesh)  # the probe beats over this mesh
+    assert recovery.elastic_seq_pose_graph_solve(graph, chunk=2, mesh=mesh, probe=beat)[2] == []
     g = torch.rand(8, 2) * 10
     d = torch.nn.functional.normalize(torch.randn(8, 16), dim=1)
     ring.ring_geo_nn_search(g, d, torch.ones(8, dtype=torch.bool), g, d, torch.ones(8, dtype=torch.bool),

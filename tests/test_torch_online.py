@@ -20,7 +20,9 @@ Tolerances, and why:
   ``OnlineSlam`` after every arrival, the JAX side on its CPU default
   (PCG; its direct BA compiles for minutes under xdist, as
   test_torch_full_ba.py says): the same correspondences, 1e-3 m (measured
-  8.2e-5 m);
+  8.2e-5 m); the same with a window of two lines over four arrivals, whose
+  last arrival drops the first line's correspondences from the solve: 1e-3
+  m (measured 5.9e-5 m);
 * the automatic stream against the JAX package's ``OnlineSlam`` after every
   arrival, both on the JAX detector's keypoints: the same correspondences,
   0.02 m (the automatic profile's bound, test_torch_auto.py; measured
@@ -208,6 +210,24 @@ def test_full_ba_stream_matches_jax_after_every_arrival():
         assert p.state.n_lc == j.state.n_lc
         np.testing.assert_allclose(tt, jt, atol=1e-3)
     assert p.state.n_lc > 0
+
+
+def test_windowed_full_ba_stream_matches_jax_after_every_arrival():
+    """Four lines through a window of two: from the third arrival on, the
+    solve holds the window's poses with constant-pose endpoints outside it."""
+    from diasss_tpu.synthetic import make_survey
+
+    survey = make_survey(n_lines=3, n_pings=60, n_bins=256, n_landmarks=60, n_tie_lines=1, seed=3)
+    jf, tf = jax_and_port_frames(survey)
+    cfg = PipelineConfig(min_overlap=0.1, estimator="full_ba")
+    j = jonline.OnlineSlam(cfg, window_frames=2)
+    p = online.OnlineSlam(port_cfg(cfg), window_frames=2, device="cpu")
+    for k, (a, b) in enumerate(zip(jf, tf)):
+        jt, tt = np.asarray(j.add_frame(a).t), p.add_frame(b).t.numpy()
+        assert tt.shape == jt.shape == (60 * (k + 1), 3)
+        assert p.state.n_lc == j.state.n_lc
+        np.testing.assert_allclose(tt, jt, atol=1e-3)
+    assert len(tf) == 4 and p.state.n_lc > 0
 
 
 def test_automatic_stream_matches_jax_after_every_arrival(monkeypatch):

@@ -1,0 +1,350 @@
+"""The port's public surface against the JAX package's.
+
+Every public name of every ``diasss_tpu`` module (its ``__all__``, else its
+top-level functions and classes and their public methods) has a
+counterpart at the same path in ``diasss_tpu_torch``, apart from the
+exclusions below, each with its reason.  The functions ported last get a
+parity case against their JAX originals on seeded numpy inputs:
+
+* geometry and factors, float32 on both sides with the same formulas:
+  atol 2e-6 on O(1) values, 5e-5 on positions of tens of metres (a few
+  float32 ulps, as ``test_torch_geometry.py``);
+* the per-pair evaluators: the same values as the port's stacked
+  evaluators bit for bit, and the JAX package's to 1e-4 m; eval_2
+  re-triangulates each landmark by a float32 LM, so its rows agree to
+  1e-3 m and its shares to one row (as ``test_torch_mixed.py``);
+* ATE 1e-5 m; the trajectory loader and ``SlamResult.frame_poses`` exact.
+
+Where CUDA is absent, the multi-device layer's device defaults raise.
+"""
+
+import dataclasses
+import importlib
+import inspect
+import os
+import socket
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from torch_parity_helpers import jax_and_port_frames, small_survey
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+# module paths of the JAX package without a counterpart, and why
+EXCLUDED_MODULES = {
+    "diasss_tpu.cache": "the XLA compile cache: ROADMAP's not-to-port list (the CLI's --no-compile-cache)",
+    "diasss_tpu.features.fast_pallas": "the Pallas kernel B1: ported as features.fast_cuda (csrc/fast9.cu)",
+    "diasss_tpu.matching.dense_pallas": "the Pallas kernel B2: ported as matching.dense_cuda (csrc/qcorr.cu)",
+}
+# names without a counterpart at the same path, and why
+EXCLUDED_NAMES = {
+    "diasss_tpu.features.fast.fast_score": "renamed fast_score_plain: the plain version beside the CUDA kernel",
+    "diasss_tpu.solvers.tridiag.thomas_block_tridiag_multi":
+        "a backend-keyed branch (ROADMAP hazard 1): the port's chain solve is cyclic reduction everywhere",
+    "diasss_tpu.solvers.tridiag.ChainFactor": "the 'chain' preconditioner: ROADMAP's not-to-port list",
+    "diasss_tpu.solvers.tridiag.chain_factor": "the 'chain' preconditioner: ROADMAP's not-to-port list",
+    "diasss_tpu.solvers.tridiag.chain_solve": "the 'chain' preconditioner: ROADMAP's not-to-port list",
+    "diasss_tpu.parallel.seq.shard_map":
+        "JAX's SPMD transform (a version shim): the port runs one process per rank on torch.distributed",
+}
+# ported last: the same parameter names as the JAX originals
+NEW = {
+    "geometry.se3": ["transform_from", "adjoint"],
+    "geometry.sonar": ["bbox_iou_overlap"],
+    "factors.between": ["prior_residual", "point_prior_residual"],
+    "factors.sss_point": ["sss_point_whitened"],
+    "evaluate": ["eval_landmark_consistency", "eval_triangulated_consistency", "trajectory_ate"],
+    "trajectory": ["load_poses_rpy"],
+    "parallel.seq": ["to_host"],
+}
+
+
+def _jax_modules():
+    root = os.path.join(REPO, "diasss_tpu")
+    for dirpath, _, files in os.walk(root):
+        for f in sorted(files):
+            if f.endswith(".py"):
+                rel = os.path.relpath(os.path.join(dirpath, f), REPO)[:-3].replace(os.sep, ".")
+                yield rel[: -len(".__init__")] if rel.endswith(".__init__") else rel
+
+
+def _public_names(mod):
+    if hasattr(mod, "__all__"):
+        return list(mod.__all__)
+    return [n for n, v in vars(mod).items() if not n.startswith("_") and (inspect.isfunction(v) or inspect.isclass(v))
+            and getattr(v, "__module__", None) == mod.__name__]
+
+
+def _public_methods(cls):
+    return [a for a, v in vars(cls).items() if not a.startswith("_")
+            and (inspect.isfunction(v) or isinstance(v, (property, staticmethod, classmethod)))]
+
+
+def test_every_public_name_has_a_counterpart():
+    missing = []
+    for name in sorted(_jax_modules()):
+        if name in EXCLUDED_MODULES:
+            continue
+        mod = importlib.import_module(name)
+        port_name = "diasss_tpu_torch" + name[len("diasss_tpu"):]
+        try:
+            port = importlib.import_module(port_name)
+        except ImportError:
+            missing.append(port_name)
+            continue
+        for attr in _public_names(mod):
+            if f"{name}.{attr}" in EXCLUDED_NAMES:
+                assert not hasattr(port, attr), f"{name}.{attr} is listed as excluded but exists in the port"
+                continue
+            if not hasattr(port, attr):
+                missing.append(f"{port_name}.{attr}")
+                continue
+            ours, theirs = getattr(port, attr), getattr(mod, attr)
+            if inspect.isclass(theirs):
+                missing += [f"{port_name}.{attr}.{m}" for m in _public_methods(theirs) if not hasattr(ours, m)]
+    assert missing == []
+
+
+@pytest.mark.parametrize("path", sorted(NEW))
+def test_new_names_keep_the_jax_signatures(path):
+    mod = importlib.import_module("diasss_tpu." + path)
+    port = importlib.import_module("diasss_tpu_torch." + path)
+    for name in NEW[path]:
+        assert list(inspect.signature(getattr(port, name)).parameters) == \
+            list(inspect.signature(getattr(mod, name)).parameters), name
+
+
+def _poses(seed, n=32, spread=30.0):
+    rng = np.random.default_rng(seed)
+    rows = np.concatenate([rng.normal(size=(n, 3)) * 0.5, rng.normal(size=(n, 3)) * spread], 1).astype(np.float32)
+    from diasss_tpu.geometry import se3 as jse3
+    from diasss_tpu_torch.geometry import se3
+
+    return rows, jse3.from_rodrigues_xyz(jnp.asarray(rows)), se3.from_rodrigues_xyz(torch.as_tensor(rows))
+
+
+def test_geometry_matches_jax():
+    from diasss_tpu.geometry import se3 as jse3
+    from diasss_tpu import geometry as jgeometry
+    from diasss_tpu_torch import geometry
+    from diasss_tpu_torch.geometry import se3
+
+    _, ja, ta = _poses(0)
+    p = np.random.default_rng(1).normal(size=(32, 3)).astype(np.float32) * 20
+    np.testing.assert_allclose(se3.transform_from(ta, torch.as_tensor(p)).numpy(),
+                               np.asarray(jse3.transform_from(ja, jnp.asarray(p))), atol=5e-5)
+    adj, jadj = se3.adjoint(ta).numpy(), np.asarray(jse3.adjoint(ja))
+    np.testing.assert_allclose(adj[..., :3, :], jadj[..., :3, :], atol=2e-6)  # R and 0
+    np.testing.assert_allclose(adj[..., 3:, :], jadj[..., 3:, :], atol=5e-5)  # hat(t) R and R
+    for name in jgeometry.__all__:
+        if name not in ("so3", "sonar", "Pose3"):
+            assert getattr(geometry, name) is getattr(se3, name), name
+
+
+@pytest.mark.parametrize("shift", [(0.0, 0.0), (30.0, -20.0), (500.0, 0.0)])
+def test_bbox_iou_overlap_matches_jax(shift):
+    from diasss_tpu.geometry import sonar as jsonar
+    from diasss_tpu_torch.geometry import sonar
+
+    rng = np.random.default_rng(2)
+    a = (rng.random((40, 24, 2)) * [100.0, 60.0]).astype(np.float32)
+    b = (rng.random((30, 24, 2)) * [80.0, 90.0] + shift).astype(np.float32)
+    ours = float(sonar.bbox_iou_overlap(torch.as_tensor(a), torch.as_tensor(b)))
+    np.testing.assert_allclose(ours, float(jsonar.bbox_iou_overlap(jnp.asarray(a), jnp.asarray(b))), atol=2e-6)
+    assert (ours == 0.0) == (shift[0] == 500.0)
+
+
+def test_factors_match_jax():
+    from diasss_tpu import factors as jfactors
+    from diasss_tpu.geometry import se3 as jse3
+    from diasss_tpu_torch import factors
+    from diasss_tpu_torch.geometry import se3
+
+    _, ja, ta = _poses(3)
+    _, jb, tb = _poses(4, spread=0.5)
+    np.testing.assert_allclose(factors.prior_residual(ta, tb).numpy(),
+                               np.asarray(jfactors.prior_residual(ja, jb)), atol=5e-5)
+    p, q = (np.random.default_rng(s).normal(size=(32, 3)).astype(np.float32) * 20 for s in (5, 6))
+    np.testing.assert_allclose(factors.point_prior_residual(torch.as_tensor(p), torch.as_tensor(q)).numpy(),
+                               np.asarray(jfactors.point_prior_residual(jnp.asarray(p), jnp.asarray(q))), atol=0)
+    rng = np.random.default_rng(7)
+    m = np.stack([rng.random(32) * 40 + 10, np.zeros(32)], 1).astype(np.float32)
+    sig = np.stack([np.full(32, 0.1), m[:, 0] * 1.7e-3], 1).astype(np.float32)
+    ours = factors.sss_point_whitened(torch.as_tensor(p), ta, se3.identity((32,)), torch.as_tensor(m),
+                                      torch.as_tensor(sig)).numpy()
+    theirs = jfactors.sss_point_whitened(jnp.asarray(p), ja, jse3.identity((32,)), jnp.asarray(m), jnp.asarray(sig))
+    np.testing.assert_allclose(ours, np.asarray(theirs), rtol=1e-5, atol=1e-3)  # whitened by sigmas down to 0.02
+    for name in jfactors.__all__:
+        assert hasattr(factors, name), name
+
+
+@pytest.fixture(scope="module")
+def eval_pair():
+    """One annotated frame pair of a small survey, both packages' frames,
+    and estimated poses: DR with seeded noise."""
+    from diasss_tpu.config import PipelineConfig
+    from diasss_tpu.pipeline import _assemble_pairs, _overlap_pairs
+
+    survey = small_survey()
+    jf, tf = jax_and_port_frames(survey)
+    pair_ids = _overlap_pairs(jf, PipelineConfig().min_overlap)
+    kps, _ = _assemble_pairs(jf, None, pair_ids, PipelineConfig(), True)
+    key = max(pair_ids, key=lambda k: int(np.asarray(kps[k].valid).sum()))
+    rows = np.asarray(kps[key].pairs)[np.asarray(kps[key].valid)]
+    rng = np.random.default_rng(11)
+    est = []
+    for f in key:
+        dr = np.asarray(jf[f].dr_poses)
+        est.append((dr + rng.normal(size=dr.shape) * np.array([1e-3] * 3 + [0.5] * 3)).astype(np.float32))
+    return jf, tf, key, rows, est
+
+
+def test_eval_landmark_consistency_matches_jax_and_the_stacked_form(eval_pair):
+    from diasss_tpu import evaluate as jev
+    from diasss_tpu.geometry import se3 as jse3
+    from diasss_tpu_torch import evaluate
+    from diasss_tpu_torch.geometry import se3
+
+    jf, tf, (s, t), rows, est = eval_pair
+    assert len(rows) > 0
+    n_bins = int(tf[s].raw.shape[1])
+    ours = evaluate.eval_landmark_consistency(rows, tf[s].geo, tf[t].geo, tf[s].ground_ranges, tf[t].ground_ranges,
+                                              se3.from_rodrigues_xyz(torch.as_tensor(est[0])),
+                                              se3.from_rodrigues_xyz(torch.as_tensor(est[1])), n_bins)
+    theirs = jev.eval_landmark_consistency(rows, jf[s].geo, jf[t].geo, jf[s].ground_ranges, jf[t].ground_ranges,
+                                           jse3.from_rodrigues_xyz(jnp.asarray(est[0])),
+                                           jse3.from_rodrigues_xyz(jnp.asarray(est[1])), n_bins)
+    assert ours.n_pairs == theirs.n_pairs == len(rows) and ours.improved_pct == theirs.improved_pct
+    np.testing.assert_allclose(ours.ini_dists, theirs.ini_dists, atol=1e-4)
+    np.testing.assert_allclose(ours.fnl_dists, theirs.fnl_dists, atol=1e-4)
+    for f in ("avg_x_dr", "avg_x_est", "avg_y_dr", "avg_y_est", "avg_norm_dr", "avg_norm_est"):
+        np.testing.assert_allclose(getattr(ours, f), getattr(theirs, f), atol=1e-4)
+    stacked = _stacked(evaluate.eval_landmark_consistency_stacked, tf, s, t, rows, est,
+                       lambda geo, gras, dr, alts: (geo, gras), n_bins)
+    for a, b in zip(ours, stacked):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_eval_triangulated_consistency_matches_jax_and_the_stacked_form(eval_pair):
+    from diasss_tpu import evaluate as jev
+    from diasss_tpu.geometry import se3 as jse3
+    from diasss_tpu_torch import evaluate
+    from diasss_tpu_torch.geometry import se3
+
+    jf, tf, (s, t), rows, est = eval_pair
+    ours = evaluate.eval_triangulated_consistency(rows, tf[s].dr_poses, tf[t].dr_poses, tf[s].geo, tf[t].geo,
+                                                  tf[s].altitudes, tf[t].altitudes,
+                                                  se3.from_rodrigues_xyz(torch.as_tensor(est[0])),
+                                                  se3.from_rodrigues_xyz(torch.as_tensor(est[1])))
+    theirs = jev.eval_triangulated_consistency(rows, jf[s].dr_poses, jf[t].dr_poses, jf[s].geo, jf[t].geo,
+                                               jf[s].altitudes, jf[t].altitudes,
+                                               jse3.from_rodrigues_xyz(jnp.asarray(est[0])),
+                                               jse3.from_rodrigues_xyz(jnp.asarray(est[1])))
+    assert ours.n_pairs == theirs.n_pairs == len(rows)
+    for name in ours._fields:
+        x, y = np.asarray(getattr(ours, name), np.float64), np.asarray(getattr(theirs, name), np.float64)
+        if name.endswith("_pct"):
+            assert abs(x - y) <= 100.0 / ours.n_pairs + 1e-9, name
+        else:
+            np.testing.assert_allclose(x, y, rtol=0, atol=1e-4 if x.ndim == 0 else 1e-3, err_msg=name)
+    stacked = _stacked(evaluate.eval_triangulated_consistency_stacked, tf, s, t, rows, est,
+                       lambda geo, gras, dr, alts: (dr, geo, alts))
+    for a, b in zip(ours, stacked):
+        np.testing.assert_array_equal(a, b)
+
+
+def _stacked(fn, tf, s, t, rows, est, frame_args, *extra):
+    """``fn``'s result for the one block of rows of frames ``(s, t)``."""
+    from diasss_tpu_torch.geometry import se3
+
+    geo = torch.stack([tf[s].geo, tf[t].geo])
+    gras = torch.stack([tf[s].ground_ranges, tf[t].ground_ranges])
+    dr = torch.stack([tf[s].dr_poses, tf[t].dr_poses])
+    alts = torch.stack([tf[s].altitudes, tf[t].altitudes])
+    K = len(rows)
+    poses = se3.from_rodrigues_xyz(torch.as_tensor(np.concatenate(est)))
+    out = fn(rows, np.zeros(K, np.int64), np.ones(K, np.int64), [("pair", 0, K)], *frame_args(geo, gras, dr, alts),
+             poses, np.asarray([0, len(est[0])]), *extra)
+    return out["pair"]
+
+
+def test_trajectory_ate_matches_jax():
+    from diasss_tpu import evaluate as jev
+    from diasss_tpu_torch import evaluate
+
+    rows, ja, ta = _poses(8)
+    gt = rows + np.random.default_rng(9).normal(size=rows.shape).astype(np.float32) * 0.3
+    np.testing.assert_allclose(evaluate.trajectory_ate(ta, gt), jev.trajectory_ate(ja, gt), atol=1e-5)
+    assert evaluate.trajectory_ate(ta, gt) == evaluate.trajectory_ate_pair(ta.t, ta, gt)[1]
+
+
+def test_load_poses_rpy_and_frame_poses_match_jax(tmp_path):
+    from diasss_tpu import pipeline as jpipeline
+    from diasss_tpu import trajectory as jtrajectory
+    from diasss_tpu_torch import pipeline, trajectory
+    from diasss_tpu_torch.parallel.seq import to_host
+
+    from diasss_tpu.geometry import se3 as jse3
+
+    _, _, ta = _poses(10)
+    ja = jse3.Pose3(jnp.asarray(ta.R.numpy()), jnp.asarray(ta.t.numpy()))  # the same arrays on both sides
+    path = str(tmp_path / "poses.txt")
+    trajectory.save_poses_rpy(path, ta)
+    np.testing.assert_array_equal(trajectory.load_poses_rpy(path), jtrajectory.load_poses_rpy(path))
+    slices = [slice(0, 12), slice(12, 32)]
+
+    def result(cls, poses):
+        blank = {f.name: None for f in dataclasses.fields(cls) if f.default is dataclasses.MISSING}
+        return cls(**{**blank, "poses": poses, "frame_slices": slices})
+
+    ours, theirs = result(pipeline.SlamResult, ta), result(jpipeline.SlamResult, ja)
+    for f in range(len(slices)):
+        np.testing.assert_array_equal(to_host(ours.frame_poses(f).t), np.asarray(theirs.frame_poses(f).t))
+        np.testing.assert_array_equal(to_host(ours.frame_poses(f).R), np.asarray(theirs.frame_poses(f).R))
+
+
+def test_package_exports():
+    from diasss_tpu_torch import parallel, solvers
+    from diasss_tpu_torch.parallel import ring, shard
+    from diasss_tpu_torch.solvers import lm
+
+    assert solvers.LMResult is lm.LMResult and solvers.levenberg_marquardt is lm.levenberg_marquardt
+    assert parallel.ring_geo_nn_search is ring.ring_geo_nn_search
+    for name in ("make_mesh", "sharded_full_ba_solve", "sharded_lc_solve", "sharded_pose_graph_solve"):
+        assert getattr(parallel, name) is getattr(shard, name)
+
+
+@pytest.mark.skipif(torch.cuda.is_available(), reason="the defaults resolve to the card where CUDA is present")
+def test_multi_device_defaults_raise_without_cuda(tmp_path):
+    import torch.distributed as dist
+
+    from diasss_tpu_torch.parallel import distributed, shard
+
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        distributed.default_device()
+    with pytest.raises(RuntimeError, match='backend="gloo"'):
+        distributed.initialize("file://" + str(tmp_path / "store0"), 1, 0)
+    assert not dist.is_initialized()
+    distributed.initialize("file://" + str(tmp_path / "store"), 1, 0, backend="gloo")
+    try:
+        for fn in (lambda: shard.make_mesh(1), distributed.global_mesh):
+            with pytest.raises(RuntimeError, match="--device cpu"):
+                fn()
+        assert shard.make_mesh(1, device="cpu").device == torch.device("cpu")
+    finally:
+        dist.destroy_process_group()
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    env = {k: v for k, v in os.environ.items() if not k.startswith("XLA_")}
+    proc = subprocess.run([sys.executable, "-m", "diasss_tpu_torch.parallel.multihost_check", "--init-method",
+                           f"tcp://localhost:{port}", "--world-size", "1", "--rank", "0"], cwd=REPO,
+                          env={**env, "PYTHONPATH": REPO}, capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0 and "--device cpu" in proc.stderr, proc.stderr[-2000:]
+    assert "MULTIHOST_OK" not in proc.stdout
