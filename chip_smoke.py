@@ -37,7 +37,11 @@ Phases (every one asserts; nothing is caught):
    (one B1 launch per frame, one B2 launch per match round), then once
    more under ``torch.profiler`` (device busy time, top kernels);
 6. the detected two-stage path (the ``--detected`` CLI settings) on the
-   5-line, 3000-pose survey: warm-up, then a counted, timed pass;
+   5-line, 3000-pose survey: warm-up, then a counted, timed pass; then
+   ``detect_features(stacked=True)`` on its frames beside the per-level
+   layout (milliseconds and kernels per frame, one B1 launch per frame,
+   valid keypoints bit-identical, descriptors within 1e-3, B1 held to its
+   plain version on each frame's pyramid);
 7. the automatic profile with ``full_ba.marginals=True`` (what ``--metrics``
    runs; this slice's main path through both kernels): launch counts read
    around it, ``pose_marginals`` seconds, sigma statistics (finite, zero
@@ -51,7 +55,12 @@ Phases (every one asserts; nothing is caught):
    against the direct pass's) and of the exact pose marginals (12000:
    ``pose_graph.marginals``; 4200: ``full_ba.marginals``); and the
    marginals of the 12000-pose chain with 1024 loop closures, their memory
-   envelope;
+   envelope; then the JAX package's opt-in solver options, solving only on
+   the graph and problem those passes built, each after a one-trial
+   warm-up: the 12000-pose graph with ``coarse_init_stride=4``, with the
+   damping sweep (0.1, 1, 10; peak memory) and with ``"chain"`` beside a
+   ``dense_seg`` solve, and the 4200-pose problem with ``"chain"`` beside
+   the ``dense_seg`` pass;
 9. online automatic (``OnlineSlam(automatic_config())``, this slice's main
    path): the automatic survey's 4 frames streamed in turn after one
    warm-up stream, per arrival the poses, new pairs, correspondences in the
@@ -154,6 +163,11 @@ B1_LARGE = (4992, 1280)  # a long waterfall as one level
 QCORR_RANDOM = ((12000, 43), (12000, 19), (2000, 43))
 MAX_LC_MARGINALS = 1024  # loop-closure factors of the marginals envelope: the direct step's limit
 PCG_ATE_GATE = {"two_stage": ("abs", 1e-2), "full_ba": ("rel", 0.05)}  # a PCG pass against the direct pass
+# the coarse-to-fine initialization against the direct solve of the same 12k graph: its LM starts near the
+# optimum and takes the stall exit after two rejected trials, a little short of the direct solve's stop.  The
+# JAX package does the same: on the CPU its coarse run of this graph (direct step) stops 1.89e-2 m in ATE and
+# 2.3e-5 in relative error from its own direct run, the port's 1.18e-2 m and 5.6e-5 (1.4e-4 on a 450-pose graph)
+COARSE_GATE = {"ate_m": 2.5e-2, "error_rel": 1e-3}
 ONLINE_WINDOWS = {"two_stage": 4, "full_ba": 3}  # fixed-lag windows (lines) of the streamed 6k and 4.2k surveys
 ONLINE_ANNO_LINES = 10  # the two-stage stream's lines (20 before the multi-device phases needed the time)
 CKPT_CHUNK = 5  # LM trials per checkpointed chunk
@@ -720,13 +734,15 @@ def timed_pass(frames, cfg, gt, label, card, improve=True):
     return result, wall, peak, infos
 
 
-def annotation_phase(dev, card, survey_kw, cfg, label, profile=False, variants=(), crops=None, improve=True):
+def annotation_phase(dev, card, survey_kw, cfg, label, profile=False, variants=(), crops=None, improve=True,
+                     kept=None):
     """An annotation cell: warm-up, the timed pass (profiled once more if
     ``profile``), then one pass of each ``(label, cfg)`` variant on the same
     survey.  A variant with another preconditioner is a PCG pass, gated
     against the timed pass's ATE.  ``crops``: lines cut to fewer bins
     (:func:`crop_lines`); ``improve``: the timed pass's gate
-    (:func:`timed_pass`)."""
+    (:func:`timed_pass`); ``kept``: a dict that takes each variant's
+    ``(result, infos)`` under its label."""
     from diasss_tpu_torch.pipeline import run_slam
     from diasss_tpu_torch.synthetic import make_survey
 
@@ -745,6 +761,8 @@ def annotation_phase(dev, card, survey_kw, cfg, label, profile=False, variants=(
     for v_label, v_cfg in variants:
         frames = build_frames(survey, dev)
         res, _, _, infos = timed_pass(frames, v_cfg, gt, v_label, card)
+        if kept is not None:
+            kept[v_label] = (res, infos)
         solver = v_cfg.full_ba if v_cfg.estimator == "full_ba" else v_cfg.pose_graph
         if solver.preconditioner != "auto":
             check(all(i.solver_kind == solver.preconditioner and i.cg_iters_total > 0 for i in infos),
@@ -756,6 +774,204 @@ def annotation_phase(dev, card, survey_kw, cfg, label, profile=False, variants=(
             print(f"[{v_label}] ATE {res.ate_est:.4f} m beside the direct pass's {result.ate_est:.4f} m "
                   f"(gap {gap:.2e} m, gate {tol:g}{' relative' if how == 'rel' else ' m'})")
     return survey, result
+
+
+@contextlib.contextmanager
+def captured(module, name):
+    """Record the ``(args, kwargs)`` of every call of ``module.name`` made
+    inside."""
+    calls = []
+    entry = getattr(module, name)
+
+    def run(*args, **kwargs):
+        calls.append((args, kwargs))
+        return entry(*args, **kwargs)
+
+    setattr(module, name, run)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, entry)
+
+
+def timed_solve(solve, warm):
+    """``solve()`` once after ``warm()`` (a one-trial run of the same
+    options: the card's libraries and allocations warmed); returns (its
+    output, seconds, peak device bytes)."""
+    warm()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = solve()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+
+
+def survey_ate(survey, poses) -> float:
+    from diasss_tpu_torch.evaluate import trajectory_ate_pair
+
+    dr_t = torch.as_tensor(np.concatenate([l.dr_poses[:, 3:6] for l in survey.lines]), dtype=torch.float32,
+                           device=poses.t.device)
+    return trajectory_ate_pair(dr_t, poses, np.concatenate([l.gt_poses for l in survey.lines]))[1]
+
+
+def pg_options_phase(card, survey, call, direct):
+    """The pose graph of the 12000-pose timed pass (``call``: the arguments
+    it was solved with) solved again, solving only, under each option of the
+    JAX package the default does not run: the coarse-to-fine initialization
+    (stride 4), the damping sweep (factors 0.1, 1, 10) and the exact
+    ``"chain"`` preconditioner, beside a direct and a ``dense_seg`` solve
+    of the same graph; each after a one-trial warm-up.  Gates: each ATE
+    within 1e-2 m of the direct pass's (``direct``), the coarse and sweep
+    solves not capped; the coarse solve, which stops a little short of the
+    direct one, as the JAX package's does, within :data:`COARSE_GATE`.  Returns the ``dense_seg`` solve's (ATE, CG
+    iterations): the mesh cell's reference."""
+    from diasss_tpu_torch.solvers import pose_graph
+
+    graph, base = call[0][0], call[0][1]
+    P, L = int(graph.poses0.t.shape[0]), int(graph.lc_valid.sum())
+
+    def run(cfg):
+        (poses, info), s, peak = timed_solve(
+            lambda: pose_graph.solve_pose_graph(graph, cfg),
+            lambda: pose_graph.solve_pose_graph(graph, dataclasses.replace(cfg, max_gn_iters=1)))
+        check(bool(torch.isfinite(poses.t).all()), f"anno {P}: non-finite poses under {cfg}")
+        capped = info.iterations >= cfg.max_gn_iters and info.stall == 0
+        return poses, info, s, peak, survey_ate(survey, poses), capped
+
+    def gate(label, ate, capped=False):
+        check(not capped, f"[{label}] the solve stopped at its trial cap while improving")
+        check(abs(ate - direct.ate_est) <= PCG_ATE_GATE["two_stage"][1],
+              f"[{label}] ATE {ate} against the direct pass's {direct.ate_est}")
+
+    _, d_info, d_s, d_peak, d_ate, _ = run(base)
+    check(abs(d_ate - direct.ate_est) <= 1e-4, f"anno {P}: the direct solve alone gave ATE {d_ate!r}, the pass "
+                                                f"{direct.ate_est!r}")
+    print(f"[anno {P}] {L} loop closures; the direct solve alone: {d_info.iterations} trials, {d_s:.4f} s, peak "
+          f"{d_peak / 2**20:.1f} MiB, ATE {d_ate!r} m (the pass: {direct.ate_est!r} m) on {card}")
+
+    _, info, s, peak, ate, capped = run(dataclasses.replace(base, coarse_init_stride=4))
+    adopted = bool(info.error_init < info.error0)
+    err_gap = abs(float(info.error) - float(d_info.error)) / float(d_info.error)
+    check(not capped, f"[anno {P} coarse4] the solve stopped at its trial cap while improving")
+    check(abs(ate - direct.ate_est) <= COARSE_GATE["ate_m"] and err_gap <= COARSE_GATE["error_rel"],
+          f"[anno {P} coarse4] ATE {ate} against the direct pass's {direct.ate_est}, error {float(info.error)} "
+          f"against the direct solve's {float(d_info.error)}")
+    print(f"[anno {P} coarse4] coarse init {'adopted' if adopted else 'not adopted'}, err_init/err0 "
+          f"{float(info.error_init) / float(info.error0):.4e}, {info.iterations} trials (direct {d_info.iterations}), "
+          f"pose_graph {s:.4f} s (direct {d_s:.4f} s), capped {capped}, final error {float(info.error):.6f} "
+          f"({err_gap:.2e} relative from the direct solve's; gate {COARSE_GATE['error_rel']:g}), ATE {ate:.4f} m "
+          f"(direct pass {direct.ate_est:.4f} m; gate {COARSE_GATE['ate_m']:g} m) on {card}")
+
+    factors = (0.1, 1.0, 10.0)
+    _, info, s, peak, ate, capped = run(dataclasses.replace(base, lam_sweep_factors=factors))
+    gate(f"anno {P} sweep", ate, capped)
+    print(f"[anno {P} sweep] factors {factors}: {info.iterations} trials (direct {d_info.iterations}), solve "
+          f"{s:.4f} s (direct {d_s:.4f} s), peak device memory {peak / 2**20:.1f} MiB (direct "
+          f"{d_peak / 2**20:.1f} MiB), capped {capped}, ATE {ate:.4f} m (direct pass {direct.ate_est:.4f} m) on {card}")
+
+    _, ds_info, ds_s, _, ds_ate, _ = run(dataclasses.replace(base, preconditioner="dense_seg"))
+    gate(f"anno {P} dense_seg", ds_ate)
+    _, info, s, peak, ate, _ = run(dataclasses.replace(base, preconditioner="chain"))
+    check(info.solver_kind == "chain" and info.cg_iters_total > 0, f"[anno {P} chain] {info}")
+    gate(f"anno {P} chain", ate)
+    print(f"[anno {P} chain] {info.iterations} trials, {info.cg_iters_total} CG iterations, solve {s:.4f} s, "
+          f"peak {peak / 2**20:.1f} MiB, ATE {ate:.4f} m; the dense_seg solve of the same graph: "
+          f"{ds_info.iterations} trials, {ds_info.cg_iters_total} CG, {ds_s:.4f} s, ATE {ds_ate:.4f} m; direct "
+          f"{d_s:.4f} s, ATE {direct.ate_est:.4f} m on {card}")
+    return ds_ate, ds_info.cg_iters_total
+
+
+def ba_chain_phase(card, survey, call, direct, dense_seg):
+    """The 4200-pose full-BA problem of the timed pass (``call``: the
+    arguments it was solved with) solved again with the exact ``"chain"``
+    preconditioner, solving only, after a one-trial warm-up; printed beside
+    the same call's ``dense_seg`` pass (``dense_seg``: its result and solve
+    infos) and gated, as that pass is, within 5% of the direct pass's ATE."""
+    from diasss_tpu_torch.solvers import full_ba
+
+    (prob, ba_cfg, kp_cfg), kwargs = call
+    cfg = dataclasses.replace(ba_cfg, preconditioner="chain")
+    (poses, _, info), s, peak = timed_solve(
+        lambda: full_ba.solve_full_ba(prob, cfg, kp_cfg, **kwargs),
+        lambda: full_ba.solve_full_ba(prob, dataclasses.replace(cfg, max_iters=1), kp_cfg, **kwargs))
+    check(bool(torch.isfinite(poses.t).all()), "full_ba anno chain: non-finite poses")
+    check(info.solver_kind == "chain" and info.cg_iters_total > 0, f"[full_ba anno chain] {info}")
+    ate = survey_ate(survey, poses)
+    how, tol = PCG_ATE_GATE["full_ba"]
+    check(abs(ate - direct.ate_est) <= tol * direct.ate_est,
+          f"[full_ba anno chain] ATE {ate} against the direct pass's {direct.ate_est}")
+    res, infos = dense_seg
+    print(f"[full_ba anno chain] {int(poses.t.shape[0])} poses: {info.iterations} trials, {info.cg_iters_total} CG "
+          f"iterations, solve {s:.4f} s, peak {peak / 2**20:.1f} MiB, ATE {ate:.4f} m (direct pass "
+          f"{direct.ate_est:.4f} m, gate {tol:g} relative); the dense_seg pass of this call: "
+          f"{[i.iterations for i in infos]} trials, {[i.cg_iters_total for i in infos]} CG, solve "
+          f"{res.timings['full_ba']:.4f} s, ATE {res.ate_est:.4f} m; direct {direct.timings['full_ba']:.4f} s on {card}")
+
+
+def detected_stacked_phase(dev, card):
+    """``detect_features(stacked=True)`` on the detected survey's frames
+    beside the per-level layout the pipeline runs: after a warm-up of both,
+    B1's launches per frame counted around the stacked layout, every
+    launch of either layout counted by ``torch.profiler`` (when it records
+    kernels), milliseconds per frame of each; valid keypoints bit-identical
+    (positions, responses, angles, sizes, levels), descriptors within 1e-3;
+    B1 bit-identical to its plain version on each frame's pyramid.  Returns
+    (B1 launches, B1 error)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from diasss_tpu_torch.config import PipelineConfig, detected_config
+    from diasss_tpu_torch.features import fast_cuda
+    from diasss_tpu_torch.features.detector import detect_features
+    from diasss_tpu_torch.features.fast import fast_two_threshold_plain
+    from diasss_tpu_torch.features.pyramid import build_pyramid
+    from diasss_tpu_torch.synthetic import make_survey
+
+    dcfg = detected_config(PipelineConfig()).detector
+    frames = build_frames(make_survey(**SURVEY), dev)
+
+    def layout(stacked):
+        return [detect_features(f.norm, f.mask, dcfg, stacked=stacked) for f in frames]
+
+    layout(True), layout(False)  # warm-up
+    torch.cuda.synchronize()
+    fast_cuda.launches = 0
+    stacked = layout(True)
+    launches = fast_cuda.launches
+    check(launches == len(frames), f"detected stacked: FAST kernel launched {launches} times for {len(frames)} frames")
+    per_level = layout(False)
+    ms = {k: cuda_time_ms(lambda: layout(k), reps=3, warmup=0) / len(frames) for k in (True, False)}
+    kernels = {}
+    for k in (True, False):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            layout(k)
+            torch.cuda.synchronize()
+        n = sum(e.count for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA)
+        kernels[k] = f"{n / len(frames):.0f}" if n else "not recorded"
+    n_valid, desc_err = 0, 0.0
+    for i, (a, b) in enumerate(zip(stacked, per_level)):
+        check(torch.equal(a.valid, b.valid), f"detected stacked: frame {i} valid masks differ")
+        v = b.valid
+        for field in ("xy", "response", "angle", "size", "level"):
+            check(torch.equal(getattr(a, field)[v], getattr(b, field)[v]),
+                  f"detected stacked: frame {i} {field} differs from the per-level layout")
+        desc_err = max(desc_err, float((a.desc[v] - b.desc[v]).abs().max()))
+        n_valid += int(v.sum())
+    check(n_valid > 0 and desc_err <= 1e-3, f"detected stacked: descriptors differ by {desc_err} ({n_valid} valid)")
+    ini_t, min_t = float(dcfg.ini_fast_threshold), float(dcfg.min_fast_threshold)
+    b1_err = 0.0
+    for i, f in enumerate(frames):
+        levels = [l.contiguous() for l in build_pyramid(f.norm.float(), dcfg.n_levels, dcfg.scale_factor)]
+        for lvl, ((hi, lo), (hi0, lo0)) in enumerate(zip(fast_cuda.fast9_two_threshold(levels, ini_t, min_t),
+                                                          fast_two_threshold_plain(levels, ini_t, min_t))):
+            e = max(float((hi - hi0).abs().max()), float((lo - lo0).abs().max()))
+            check(e == 0.0, f"detected stacked: FAST-9 kernel differs from the plain version, frame {i} level {lvl}")
+            b1_err = max(b1_err, e)
+    print(f"[detected stacked] {len(frames)} frames of {tuple(frames[0].norm.shape)}: stacked {ms[True]:.3f} ms per "
+          f"frame, per-level {ms[False]:.3f} ms; kernels per frame (profiler) stacked {kernels[True]}, per-level "
+          f"{kernels[False]}; FAST launches {launches} ({launches / len(frames):g} per frame); {n_valid} valid "
+          f"keypoints bit-identical, descriptors within {desc_err:.2e}; B1 max abs error {b1_err} on {card}")
+    return launches, b1_err
 
 
 def marginals_envelope(dev, survey, poses, card, n_lc=MAX_LC_MARGINALS):
@@ -1649,9 +1865,9 @@ def multihost_phase(card):
 
 def mesh_refs(dev, card, refs):
     """The single-device runs the mesh cells are held to: those of this
-    smoke run's earlier phases (``refs``), and the two made here, the
-    detected cell's (its exclusion radius at 0) and the 12k dense_seg pass."""
-    from diasss_tpu_torch.config import PipelineConfig, PoseGraphConfig
+    smoke run's earlier phases (``refs``; the 12k ``dense_seg`` solve is
+    :func:`pg_options_phase`'s), and the one made here, the detected cell's
+    (its exclusion radius at 0)."""
     from diasss_tpu_torch.pipeline import run_slam
     from diasss_tpu_torch.synthetic import make_survey
 
@@ -1666,11 +1882,6 @@ def mesh_refs(dev, card, refs):
 
     res, refs["detected_wall"] = single(SURVEY, mesh_detected_cfg())
     refs["detected"] = res.ate_est
-    # the 12k survey's dense_seg pass on one device: the mesh's dense_seg pass is held to it
-    with solver_infos() as infos:
-        res, refs["anno12k dense_seg_wall"] = single({**SURVEY, "n_lines": 20},
-                                                     PipelineConfig(pose_graph=PoseGraphConfig(preconditioner="dense_seg")))
-    refs.update(anno12k_dense_seg=res.ate_est, anno12k_dense_seg_cg=sum(i.cg_iters_total for i in infos))
     print(f"[mesh refs] single device: anno12k {refs['anno12k']:.4f} m (dense_seg {refs['anno12k_dense_seg']:.4f} m), "
           f"ba4k {refs['ba4k']:.4f} m, auto "
           f"{refs['auto']:.4f} m, detected (exclusion radius 0) {refs['detected']:.4f} m, online ba4k window "
@@ -1697,6 +1908,7 @@ def main() -> int:
         return 1
     import diasss_tpu_torch  # noqa: F401  (fails outside the repository)
     from diasss_tpu_torch.config import FullBAConfig, PipelineConfig, PoseGraphConfig, automatic_config
+    from diasss_tpu_torch.solvers import full_ba, pose_graph
     from diasss_tpu_torch.synthetic import make_survey
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1733,6 +1945,7 @@ def main() -> int:
     fast_marg, qcorr_marg = auto_marginals_phase(dev, auto_survey, marg_cfg, auto_gt, card)
 
     fast_detected = detected_phase(dev)
+    fast_stacked, b1_stacked_err = detected_stacked_phase(dev, card)
 
     def pg(**kw):
         return PipelineConfig(pose_graph=PoseGraphConfig(**kw))
@@ -1743,18 +1956,26 @@ def main() -> int:
     annotation_phase(dev, card, {**SURVEY, "n_lines": 5}, PipelineConfig(), "anno",
                      variants=[("anno dense_seg", pg(preconditioner="dense_seg")),
                                ("anno tridiag", pg(preconditioner="tridiag"))])
-    survey12k, result12k = annotation_phase(dev, card, {**SURVEY, "n_lines": 20}, PipelineConfig(), "anno",
-                                            variants=[("anno marginals", pg(marginals=True))])
+    with captured(pose_graph, "solve_pose_graph") as pg_calls:
+        survey12k, result12k = annotation_phase(dev, card, {**SURVEY, "n_lines": 20}, PipelineConfig(), "anno",
+                                                variants=[("anno marginals", pg(marginals=True))])
     print(f"[anno 12000] the float64 direct step: solve_capped {result12k.solve_capped}, pose_graph "
           f"{result12k.timings['pose_graph']:.4f} s, ATE {result12k.ate_est:.4f} m")
     check(not result12k.solve_capped, "anno 12000: the pose-graph solve stopped at its trial cap while improving")
     refs.update(anno12k=result12k.ate_est, anno12k_error=result12k.solve_error,
                 anno12k_wall=result12k.timings["timed_pass_wall"], anno12k_t=result12k.poses.t.cpu().numpy())
     marginals_envelope(dev, survey12k, result12k.poses, card)
-    del survey12k, result12k
-    _, result4k = annotation_phase(dev, card, BA_SURVEY, ba(), "full_ba anno", profile=True,
-                                   variants=[("full_ba anno marginals", ba(marginals=True)),
-                                             ("full_ba anno dense_seg", ba(preconditioner="dense_seg"))])
+    refs["anno12k_dense_seg"], refs["anno12k_dense_seg_cg"] = pg_options_phase(card, survey12k, pg_calls[-1],
+                                                                                 result12k)
+    del survey12k, result12k, pg_calls
+    ba_kept = {}
+    with captured(full_ba, "solve_full_ba") as ba_calls:
+        survey4k, result4k = annotation_phase(dev, card, BA_SURVEY, ba(), "full_ba anno", profile=True,
+                                              variants=[("full_ba anno marginals", ba(marginals=True)),
+                                                        ("full_ba anno dense_seg", ba(preconditioner="dense_seg"))],
+                                              kept=ba_kept)
+    ba_chain_phase(card, survey4k, ba_calls[1], result4k, ba_kept["full_ba anno dense_seg"])
+    del survey4k, ba_calls, ba_kept
     refs.update(ba4k=result4k.ate_est, ba4k_t=result4k.poses.t.cpu().numpy(),
                 ba4k_wall=result4k.timings["timed_pass_wall"])
     del result4k
@@ -1787,10 +2008,10 @@ def main() -> int:
             "replaces": "diasss_tpu/features/fast_pallas.py:30",
             "launches": fast_online,
             "launches_by_phase": {"auto": fast_auto, "auto_marginals": fast_marg, "detected": fast_detected,
-                                  "online_auto": fast_online, "detected_orb": fast_orb,
+                                  "detected_stacked": fast_stacked, "online_auto": fast_online, "detected_orb": fast_orb,
                                   "detected_geo_patch": fast_geo_patch, "mixed_auto": fast_mixed,
                                   "online_mixed_auto": fast_mixed_online, **fast_mesh, **fast_mesh_detected},
-            "max_abs_err": max(fast_err, b1_mixed_err),
+            "max_abs_err": max(fast_err, b1_mixed_err, b1_stacked_err),
             "ms": fast_ms,
             "device_ms": fast_dev_ms,
             "device_ms_by": fast_dev_by,

@@ -4,8 +4,8 @@
 Every dataclass, field and default is the JAX package's (a test holds the two
 field by field); the field comments there carry the measurements behind each
 default.  Here they say what each field selects and which port module reads
-it.  Options whose code is not ported yet raise ``NotImplementedError`` naming
-their ROADMAP item where the pipeline reaches them.
+it.  Every option runs; the sequence-parallel solvers refuse the ``"chain"``
+preconditioner (:mod:`.parallel.seq`).
 """
 
 from __future__ import annotations
@@ -164,13 +164,19 @@ class PoseGraphConfig:
     cg_max_iters: int = 250
     # Linear solve per LM trial: "direct" (the exact damped step: multi-RHS
     # chain cyclic reduction + Woodbury over the loop-closure columns) or PCG
-    # with the "jacobi", "tridiag" or "dense_seg" preconditioner; "auto" is
-    # direct under pose_graph.resolve_pg_solver_kind's guard, dense_seg above
-    # it ("chain" is on ROADMAP's not-to-port list)
+    # with the "jacobi", "tridiag", "dense_seg" or "chain" (the exact
+    # ChainFactor) preconditioner; "auto" is direct under
+    # pose_graph.resolve_pg_solver_kind's guard, dense_seg above it
     preconditioner: str = "auto"
-    # damping sweep of the direct step; the port runs only (1.0,)
+    # damping sweep of the one-device direct step: each LM trial solves the
+    # exact step for every lam * factor at once and keeps the best; (1.0,) is
+    # the single-damping schedule (accept *0.3, reject *10).  The
+    # sequence-parallel solve always runs the single-damping schedule.
     lam_sweep_factors: tuple = (1.0,)
-    # coarse-to-fine initialization stride; 0/1 = off
+    # coarse-to-fine initialization: > 1 solves the graph at every stride-th
+    # pose first and starts the LM from its prolongation when that lowers the
+    # initial error; fresh solve_pose_graph calls only (the sequence-parallel
+    # solve has none, as in the JAX package); 0/1 = off
     coarse_init_stride: int = 0
     tridiag_segment: int = 256  # segment length of the segment-parallel solve
     seed: int = 0  # initial-noise PRNG seed
@@ -195,7 +201,7 @@ class FullBAConfig:
     cg_max_iters: int = 250
     # Linear solve per LM trial: "direct" (multi-RHS chain cyclic reduction +
     # Woodbury over 3 landmark-coupling columns per correspondence) or PCG
-    # ("jacobi", "tridiag", "dense_seg"); "auto" is direct under the size
+    # ("jacobi", "tridiag", "dense_seg", "chain"); "auto" is direct under the size
     # guard of full_ba.resolve_ba_solver_kind, dense_seg above it
     preconditioner: str = "auto"
     tridiag_segment: int = 256

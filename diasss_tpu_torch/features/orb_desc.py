@@ -34,14 +34,14 @@ def _pattern():
 def orb_descriptors(img: torch.Tensor, kps: torch.Tensor, angles: torch.Tensor, sizes: torch.Tensor) -> torch.Tensor:
     """(K, 256) float32 in {-1, +1} of keypoints ``kps`` (K, 2) (x, y) with
     steering ``angles`` (K,) radians and sizes (K,) (pattern scaled by
-    size/31)."""
+    size/31); a batch of images (L, h, w) takes (L, K, 2) keypoints."""
     img = img.to(torch.float32)
     pat = torch.as_tensor(_pattern(), device=img.device)  # (256, 2, 2)
-    c = torch.cos(angles)[:, None, None]
-    s = torch.sin(angles)[:, None, None]
-    sc = (sizes / (2.0 * PATCH_HALF + 1.0))[:, None, None]
-    px = (c * pat[..., 0] - s * pat[..., 1]) * sc + kps[:, 0, None, None]  # (K, 256, 2)
-    py = (s * pat[..., 0] + c * pat[..., 1]) * sc + kps[:, 1, None, None]
+    c = torch.cos(angles)[..., None, None]
+    s = torch.sin(angles)[..., None, None]
+    sc = (sizes / (2.0 * PATCH_HALF + 1.0))[..., None, None]
+    px = (c * pat[..., 0] - s * pat[..., 1]) * sc + kps[..., 0, None, None]  # (..., K, 256, 2)
+    py = (s * pat[..., 0] + c * pat[..., 1]) * sc + kps[..., 1, None, None]
     v = bilinear_sample(img, px, py)
     return torch.where(v[..., 0] < v[..., 1], 1.0, -1.0)
 

@@ -15,6 +15,8 @@ import math
 import numpy as np
 import torch
 
+from .orient import gather2d
+
 D_SPATIAL = 4
 N_ORI = 8
 SCL_FCTR = 3.0
@@ -49,35 +51,38 @@ _W_SPATIAL = soft_assign_matrix_np()
 
 
 def bilinear_sample(img: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor) -> torch.Tensor:
-    h, w = img.shape
+    """``img`` (h, w) at the points ``(xs, ys)``, clamped to its extent; a
+    batch of images (L, h, w) takes points that lead with L."""
+    h, w = img.shape[-2:]
     x0 = torch.clamp(torch.floor(xs), 0, w - 2)
     y0 = torch.clamp(torch.floor(ys), 0, h - 2)
     fx = torch.clamp(xs - x0, 0.0, 1.0)
     fy = torch.clamp(ys - y0, 0.0, 1.0)
     xi, yi = x0.to(torch.int64), y0.to(torch.int64)
-    v00, v01 = img[yi, xi], img[yi, xi + 1]
-    v10, v11 = img[yi + 1, xi], img[yi + 1, xi + 1]
+    v00, v01 = gather2d(img, yi, xi), gather2d(img, yi, xi + 1)
+    v10, v11 = gather2d(img, yi + 1, xi), gather2d(img, yi + 1, xi + 1)
     return v00 * (1 - fx) * (1 - fy) + v01 * fx * (1 - fy) + v10 * (1 - fx) * fy + v11 * fx * fy
 
 
 def sift_descriptors(img: torch.Tensor, kps: torch.Tensor, angles: torch.Tensor,
                      sizes: torch.Tensor) -> torch.Tensor:
-    """(K, 128) float32 descriptors of keypoints ``kps`` (K, 2) (x, y)."""
+    """(K, 128) float32 descriptors of keypoints ``kps`` (K, 2) (x, y); a
+    batch of images (L, h, w) takes (L, K, 2) keypoints and gives (L, K, 128)."""
     img = img.to(torch.float32)
     dev = img.device
     gx = torch.as_tensor(_GX, device=dev)
     gy = torch.as_tensor(_GY, device=dev)
     w_spatial = torch.as_tensor(_W_SPATIAL, device=dev)
 
-    hw = (SCL_FCTR * (sizes * 0.5))[:, None, None]  # pixels per spatial bin
-    c = torch.cos(angles)[:, None, None]
-    s = torch.sin(angles)[:, None, None]
-    ox = (c * gx - s * gy) * hw + kps[:, 0, None, None]
-    oy = (s * gx + c * gy) * hw + kps[:, 1, None, None]
-    patches = bilinear_sample(img, ox, oy)  # (K, P, P)
+    hw = (SCL_FCTR * (sizes * 0.5))[..., None, None]  # pixels per spatial bin
+    c = torch.cos(angles)[..., None, None]
+    s = torch.sin(angles)[..., None, None]
+    ox = (c * gx - s * gy) * hw + kps[..., 0, None, None]
+    oy = (s * gx + c * gy) * hw + kps[..., 1, None, None]
+    patches = bilinear_sample(img, ox, oy)  # (..., K, P, P)
 
-    dx = torch.gradient(patches, dim=2)[0]
-    dy = torch.gradient(patches, dim=1)[0]
+    dx = torch.gradient(patches, dim=-1)[0]
+    dy = torch.gradient(patches, dim=-2)[0]
     mag = torch.sqrt(dx * dx + dy * dy)
     ori = torch.atan2(dy, dx)
 
@@ -89,9 +94,9 @@ def sift_descriptors(img: torch.Tensor, kps: torch.Tensor, angles: torch.Tensor,
     ow = (torch.nn.functional.one_hot(o0, N_ORI) * (1.0 - fo)[..., None]
           + torch.nn.functional.one_hot(o1, N_ORI) * fo[..., None]) * mag[..., None]
 
-    K = kps.shape[0]
-    hist = torch.einsum("kso,sb->kbo", ow.reshape(K, PATCH * PATCH, N_ORI), w_spatial)
-    desc = hist.reshape(K, D_SPATIAL * D_SPATIAL * N_ORI)
+    lead = kps.shape[:-1]
+    hist = torch.einsum("kso,sb->kbo", ow.reshape(-1, PATCH * PATCH, N_ORI), w_spatial)
+    desc = hist.reshape(*lead, D_SPATIAL * D_SPATIAL * N_ORI)
     desc = desc / torch.clamp(torch.linalg.norm(desc, dim=-1, keepdim=True), min=1e-6)
     desc = torch.clamp(desc, max=MAG_THRESH)
     return desc / torch.clamp(torch.linalg.norm(desc, dim=-1, keepdim=True), min=1e-6) * INT_FCTR

@@ -319,7 +319,9 @@ class OnlineSlam:
         if self.bucket:
             poses0, odo_meas = _pad_chain_to(graph.poses0, graph.odo_meas, bucket_capacity(p_real))
             graph = graph._replace(poses0=poses0, odo_meas=odo_meas)
-        poses, info = solve_pose_graph(graph, cfg.pose_graph)
+        # warm-started from the previous estimate: a coarse DR-chain init
+        # would only degrade it
+        poses, info = solve_pose_graph(graph, cfg.pose_graph, allow_coarse_init=False)
         win = poses[:p_real]
         st.poses = se3.cat([st.poses[:cut], win]) if cut > 0 else win
         st.n_lc = int(lc_valid.sum())

@@ -99,9 +99,12 @@ def _pad_chain(graph: PoseGraph, n: int):
 
 def _check_kind(kind: str, preconditioner: str) -> str:
     if kind == "chain":
+        # the JAX package's resolve_seq_* pass "chain" on to their
+        # block-Jacobi branch without a word (ROADMAP hazards); the port refuses
         raise NotImplementedError(
-            "the 'chain' preconditioner (tridiag.ChainFactor) is an opt-in negative result on ROADMAP's "
-            "not-to-port list; dense_seg is the PCG fallback")
+            "the 'chain' preconditioner (tridiag.ChainFactor) factors the whole chain on one device; the "
+            "sequence-parallel solvers have no distributed form of it: use it with solve_pose_graph / "
+            "solve_full_ba, or pick 'direct', 'dense_seg', 'tridiag' or 'jacobi' here")
     if kind not in ("direct", "jacobi", "tridiag", "dense_seg"):
         raise ValueError(f"unknown preconditioner {preconditioner!r}")
     return kind
@@ -422,11 +425,10 @@ def seq_pose_graph_solve(mesh: Mesh, graph: PoseGraph, cfg: PoseGraphConfig = Po
     ``"sp_<kind>"``.  ``lam0`` / ``stall0`` resume a damping and stall
     counter (:mod:`.recovery`).  Same fixed point as
     :func:`..solvers.pose_graph.solve_pose_graph` up to the linear solve's
-    tolerance."""
-    if tuple(cfg.lam_sweep_factors) != (1.0,):
-        raise NotImplementedError(
-            "lam_sweep_factors (the damping sweep) is an opt-in negative result on ROADMAP's "
-            "not-to-port list; the port runs the single-damping schedule")
+    tolerance.  As in the JAX package, the sequence-parallel direct step
+    always runs the single-damping schedule (``cfg.lam_sweep_factors`` is
+    not read) and there is no coarse-to-fine initialization
+    (``cfg.coarse_init_stride`` is not read)."""
     poses0, odo_meas, B, P_real = _pad_chain(graph, mesh.size)
     kind = resolve_seq_pg_solver_kind(cfg.preconditioner, B, int(graph.lc_i.shape[0]))
     return _seq_pg_run(mesh, poses0, odo_meas, graph, 1e-4 if lam0 is None else float(lam0),

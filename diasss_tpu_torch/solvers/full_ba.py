@@ -12,10 +12,10 @@ system: exactly (``"direct"``: the odometry chain by multi-RHS cyclic
 reduction, the landmark couplings, 3 columns per correspondence, by
 Woodbury with one dense Cholesky) or by preconditioned conjugate gradients
 with the Schur-reduced product (``"jacobi"``, ``"tridiag"``,
-``"dense_seg"``).  ``"auto"`` is the direct step under the JAX package's
-size guard and ``"dense_seg"`` above it; ``"chain"`` is on ROADMAP's
-not-to-port list.  :func:`ba_pose_marginals` gives the exact per-pose
-marginal covariances at the solution.
+``"dense_seg"``, ``"chain"``).  ``"auto"`` is the direct step under the JAX
+package's size guard and ``"dense_seg"`` above it, never ``"chain"``.
+:func:`ba_pose_marginals` gives the exact per-pose marginal covariances at
+the solution.
 """
 
 from __future__ import annotations
@@ -71,17 +71,12 @@ def resolve_ba_solver_kind(preconditioner: str, P: int, K_pad: int) -> str:
     Woodbury chain step while ``K_pad <= 2048`` and its ``(P, 6, 3K+1)``
     multi-RHS buffers (three of them) stay under 4 GB (the JAX package's
     guard), else ``"dense_seg"`` PCG; ``"direct"``, ``"jacobi"``,
-    ``"tridiag"`` and ``"dense_seg"`` are taken as given."""
+    ``"tridiag"``, ``"dense_seg"`` and ``"chain"`` are taken as given."""
     kind = preconditioner
-    if kind == "chain":
-        raise NotImplementedError(
-            "the 'chain' preconditioner (tridiag.ChainFactor) is an opt-in negative result on ROADMAP's "
-            "not-to-port list; dense_seg is the PCG fallback"
-        )
     if kind == "auto":
         mem_ok = P * 6 * (3 * K_pad + 1) * 4 * 3 < 4e9
         kind = "direct" if (K_pad <= MAX_DIRECT_KPAD and mem_ok) else "dense_seg"
-    if kind not in ("direct", "jacobi", "tridiag", "dense_seg"):
+    if kind not in ("direct", "jacobi", "tridiag", "dense_seg", "chain"):
         raise ValueError(f"unknown full-BA preconditioner {preconditioner!r}")
     return kind
 
@@ -330,10 +325,12 @@ def _pcg_ba_step(kind: str, prob, segs, nb: _Normal, g_red, D_p, ll_solve, L_ll,
     instead: its blocks (``"jacobi"``; there one failed block switches them
     all), or the chain on it cut into segments, by cyclic reduction per
     application (``"tridiag"``) or inverted densely per trial
-    (``"dense_seg"``)."""
+    (``"dense_seg"``), or the whole chain on it factored exactly once per
+    trial with segments of ``cfg.tridiag_segment`` (``"chain"``,
+    :func:`.tridiag.chain_factor`)."""
     from .pose_graph import _cholesky_or_nan, _pcg
-    from .tridiag import (apply_dense_segment_inverses, auto_dense_segment, dense_segment_inverses,
-                          solve_block_tridiag_segmented)
+    from .tridiag import (apply_dense_segment_inverses, auto_dense_segment, chain_factor, chain_solve,
+                          dense_segment_inverses, solve_block_tridiag_segmented)
 
     dev = D_p.device
     eye6 = torch.eye(6, dtype=D_p.dtype, device=dev)
@@ -378,6 +375,11 @@ def _pcg_ba_step(kind: str, prob, segs, nb: _Normal, g_red, D_p, ll_solve, L_ll,
 
             def precond(v):
                 return apply_dense_segment_inverses(Minv, v)
+        elif kind == "chain":
+            fac = chain_factor(D_pc, U, cfg.tridiag_segment)
+
+            def precond(v):
+                return chain_solve(fac, v)
         else:
             def precond(v):
                 return solve_block_tridiag_segmented(D_pc, U, v, cfg.tridiag_segment)

@@ -7,18 +7,21 @@ held fixed (the gauge).  Each LM trial solves the damped normal equations
 either exactly (``"direct"``: the odometry chain by multi-RHS cyclic
 reduction, the loop-closure columns by the Woodbury identity with one dense
 Cholesky) or by preconditioned conjugate gradients with the factor-wise
-Hessian product (``"jacobi"``, ``"tridiag"``, ``"dense_seg"``).
+Hessian product (``"jacobi"``, ``"tridiag"``, ``"dense_seg"``, ``"chain"``).
 :func:`pg_pose_marginals` gives the exact per-pose marginal covariances at
 the solution.
 
 ``"auto"`` is ``"direct"`` while the Woodbury width and its buffers stay
 within the JAX package's guard and ``"dense_seg"`` above it — the JAX
-package's TPU rule, keyed here on no device.  ``"chain"`` is on ROADMAP's
-not-to-port list and raises.
+package's TPU rule, keyed here on no device; it never picks ``"chain"``.
+Two options of the JAX package change the schedule: a damping sweep of the
+direct step (``PoseGraphConfig.lam_sweep_factors``) and a coarse-to-fine
+initialization (``PoseGraphConfig.coarse_init_stride``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Callable, NamedTuple, Optional, Tuple
 
@@ -33,6 +36,10 @@ from ..geometry import se3
 from ..segments import Segments, chain_sum, segments
 
 MAX_DIRECT_LC = 1024
+PG_KINDS = ("direct", "jacobi", "tridiag", "dense_seg", "chain")
+# bytes of the float64 multi-RHS buffers a damping sweep solves at once;
+# past it the candidates are solved in turn on the shared terms
+SWEEP_BYTES = 8e9
 # CG iterations between two host reads of the convergence flag; past
 # convergence the iterate is frozen by a mask, so the result does not
 # depend on it
@@ -60,23 +67,22 @@ class SolveInfo(NamedTuple):
     cg_iters_total: int = 0  # CG iterations over all trials (0 for the direct step)
     solver_kind: str = "direct"  # the resolved linear solve
     lam: Optional[torch.Tensor] = None  # () final LM damping (the resume state, with ``stall``)
+    # () float64 graph error where the LM started: ``error0`` unless the
+    # coarse-to-fine initialization was adopted
+    error_init: Optional[torch.Tensor] = None
 
 
 def resolve_pg_solver_kind(preconditioner: str, P: int, L_lc: int) -> str:
     """The linear solve of a pose-graph run.  ``"auto"`` is ``"direct"``
     while ``L_lc <= 1024`` and its ``(P, 6, 6L+1)`` multi-RHS buffers (three
     of them) stay under 4 GB, else ``"dense_seg"``; ``"direct"``,
-    ``"jacobi"``, ``"tridiag"`` and ``"dense_seg"`` are taken as given."""
+    ``"jacobi"``, ``"tridiag"``, ``"dense_seg"`` and ``"chain"`` are taken
+    as given."""
     kind = preconditioner
-    if kind == "chain":
-        raise NotImplementedError(
-            "the 'chain' preconditioner (tridiag.ChainFactor) is an opt-in negative result on ROADMAP's "
-            "not-to-port list; dense_seg is the PCG fallback"
-        )
     if kind == "auto":
         mem_ok = P * 6 * (6 * L_lc + 1) * 4 * 3 < 4e9
         kind = "direct" if (L_lc <= MAX_DIRECT_LC and mem_ok) else "dense_seg"
-    if kind not in ("direct", "jacobi", "tridiag", "dense_seg"):
+    if kind not in PG_KINDS:
         raise ValueError(f"unknown pose-graph preconditioner {preconditioner!r}")
     return kind
 
@@ -254,16 +260,25 @@ def _cholesky_or_nan(A: torch.Tensor) -> torch.Tensor:
 
 
 def _direct_lm_step(graph, Ji, Jj, g, D, lam, P: int, L_lc: int):
-    """Exact damped-LM step (P, 6) for damping ``lam`` — the JAX package's
-    ``_direct_lm_step_multi`` for one damping value (its damping sweep is on
-    ROADMAP's not-to-port list).
+    """Exact damped-LM step (P, 6) for damping ``lam``: the one-candidate
+    case of :func:`_direct_lm_step_multi`."""
+    return _direct_lm_step_multi(graph, Ji, Jj, g, D, lam.reshape(1), P, L_lc)[0]
+
+
+def _direct_lm_step_multi(graph, Ji, Jj, g, D, lams, P: int, L_lc: int):
+    """Exact damped-LM steps (K, P, 6) for a (K,) vector of damping values.
 
     ``H + lam*blockdiag(H) = T' + V V^T``: ``T'`` (odometry chain + damping)
     is solved by multi-RHS cyclic reduction, the loop-closure columns ``V``
     (6 per factor) are folded in by Woodbury with one (6L, 6L) Cholesky.
-    Couplings to pose 0 are zeroed so ``delta[0] == 0`` exactly.
+    Couplings to pose 0 are zeroed so ``delta[0] == 0`` exactly.  The
+    linearization, the chain coupling ``U`` and the Woodbury right-hand
+    sides ``[-g | V]`` do not depend on the damping and are built once; the
+    damped chain reduction and the capacitance Cholesky run K wide, as one
+    batch of chains, in groups whose right-hand sides stay within
+    :data:`SWEEP_BYTES` (one candidate at a time past it).
 
-    Both solves run in float64 from the float32 blocks, and the step is
+    Both solves run in float64 from the float32 blocks, and the steps are
     returned in the Jacobians' dtype (float32).  ``g`` and ``D`` may be
     float64: :func:`solve_pose_graph` sums them in float64 from the float32
     per-factor terms, since float32 sums taken in another order (2 or 4
@@ -276,28 +291,36 @@ def _direct_lm_step(graph, Ji, Jj, g, D, lam, P: int, L_lc: int):
     LM stalls away from the fixed point the JAX package reaches with its
     Thomas scan."""
     from .lm import cholesky_solve_or_nan
-    from .tridiag import solve_block_tridiag_multi
+    from .tridiag import _cr
 
     dtype, dev, out = torch.float64, D.device, Ji.dtype
     eye6 = torch.eye(6, dtype=dtype, device=dev)
     Ji, Jj = Ji.to(dtype), Jj.to(dtype)
     U, D_odo = _odometry_chain(Ji, Jj, P)
-    T_diag = D_odo + lam.to(dtype) * D.to(dtype) + 1e-6 * eye6
+    D = D.to(dtype)
     rhs = (-g).to(dtype)[:, :, None]
-    if L_lc == 0:
-        delta = solve_block_tridiag_multi(T_diag, U, rhs)[..., 0]
-        delta[0] = 0.0
-        return delta.to(out)
-
-    cols_i, cols_j = _lc_columns(graph, Ji, Jj, P)
-    V = woodbury_columns(cols_i, cols_j, graph.lc_i, graph.lc_j, P)
-    W = solve_block_tridiag_multi(T_diag, U, torch.cat([rhs, V], dim=2))
-    w0, Wv = W[:, :, 0], W[:, :, 1:]
-    C = columns_t(cols_i, cols_j, graph.lc_i, graph.lc_j, Wv) + torch.eye(6 * L_lc, dtype=dtype, device=dev)
-    c0 = columns_t(cols_i, cols_j, graph.lc_i, graph.lc_j, w0[..., None])[:, 0]
-    y = cholesky_solve_or_nan(0.5 * (C + C.T), c0)
-    delta = w0 - Wv @ y
-    delta[0] = 0.0
+    if L_lc > 0:
+        cols_i, cols_j = _lc_columns(graph, Ji, Jj, P)
+        rhs = torch.cat([rhs, woodbury_columns(cols_i, cols_j, graph.lc_i, graph.lc_j, P)], dim=2)
+        eye_c = torch.eye(6 * L_lc, dtype=dtype, device=dev)
+    lams = lams.to(dtype)
+    group = max(1, int(SWEEP_BYTES // max(rhs.numel() * rhs.element_size(), 1)))
+    steps = []
+    for lam_g in lams.split(group):
+        k = lam_g.shape[0]
+        T_diag = D_odo + lam_g[:, None, None, None] * D + 1e-6 * eye6  # (k, P, 6, 6)
+        W = _cr(T_diag, U.expand(k, *U.shape), rhs.expand(k, *rhs.shape))
+        if L_lc == 0:
+            steps.append(W[..., 0])
+            continue
+        w0, Wv = W[..., 0], W[..., 1:]
+        C = torch.stack([columns_t(cols_i, cols_j, graph.lc_i, graph.lc_j, Wv[c]) for c in range(k)]) + eye_c
+        c0 = torch.stack([columns_t(cols_i, cols_j, graph.lc_i, graph.lc_j, w0[c, :, :, None])[:, 0]
+                          for c in range(k)])
+        y = cholesky_solve_or_nan(0.5 * (C + C.transpose(-1, -2)), c0)
+        steps.append(w0 - (Wv @ y[:, None, :, None])[..., 0])
+    delta = torch.cat(steps)
+    delta[:, 0] = 0.0
     return delta.to(out)
 
 
@@ -365,9 +388,12 @@ def _pcg_lm_step(kind: str, idx_i, idx_j, segs, Ji, Jj, g, D, lam, P: int, cfg: 
     iterations).  Preconditioners of the damped diagonal ``Dp``: its 6x6
     blocks (``"jacobi"``), or the odometry chain on ``Dp`` cut into segments
     of ``cfg.tridiag_segment``, solved by cyclic reduction per application
-    (``"tridiag"``) or inverted densely once per trial (``"dense_seg"``)."""
-    from .tridiag import (apply_dense_segment_inverses, auto_dense_segment, dense_segment_inverses,
-                          solve_block_tridiag_segmented)
+    (``"tridiag"``) or inverted densely once per trial (``"dense_seg"``), or
+    the whole chain on ``Dp`` factored exactly once per trial
+    (``"chain"``: :func:`.tridiag.chain_factor` with the ``"dense_seg"``
+    segment, then products only per application)."""
+    from .tridiag import (apply_dense_segment_inverses, auto_dense_segment, chain_factor, chain_solve,
+                          dense_segment_inverses, solve_block_tridiag_segmented)
 
     Dp = D * (1.0 + lam) + 1e-6 * torch.eye(6, dtype=D.dtype, device=D.device)
     if kind == "jacobi":
@@ -383,6 +409,11 @@ def _pcg_lm_step(kind: str, idx_i, idx_j, segs, Ji, Jj, g, D, lam, P: int, cfg: 
 
             def precond(v):
                 return apply_dense_segment_inverses(Minv, v)
+        elif kind == "chain":
+            fac = chain_factor(Dp, U, auto_dense_segment(P, cfg.tridiag_segment))
+
+            def precond(v):
+                return chain_solve(fac, v)
         else:
             def precond(v):
                 return solve_block_tridiag_segmented(Dp, U, v, cfg.tridiag_segment)
@@ -391,36 +422,120 @@ def _pcg_lm_step(kind: str, idx_i, idx_j, segs, Ji, Jj, g, D, lam, P: int, cfg: 
     return _pcg(matvec, -g, precond, cfg.cg_tol, cfg.cg_max_iters)
 
 
+def _dr_chain(graph: PoseGraph) -> se3.Pose3:
+    """The clean dead-reckoning chain ``poses0[0] . odo[0] . ... . odo[p-1]``
+    (P,) in float64: an inclusive scan of pose composition by doubling,
+    ``log2(P)`` batched steps."""
+    rel = _promoted(graph.odo_meas, torch.float64)
+    d = 1
+    while d < rel.t.shape[0]:
+        rel = se3.cat([rel[:d], se3.compose(rel[:-d], rel[d:])])
+        d *= 2
+    first = _promoted(graph.poses0[:1], torch.float64)
+    return se3.cat([first, se3.compose(first, rel)])
+
+
+def _coarse_graph_and_chain(graph: PoseGraph, stride: int):
+    """The pose graph restricted to every ``stride``-th pose, and the DR
+    chain (float64).  Coarse odometry: the DR chain between consecutive
+    anchors, its sigmas grown by ``sqrt(stride)``; a loop closure ``(i, j)``
+    moves to the anchors ``(i // stride, j // stride)`` with its
+    measurement carried along the DR offsets from each anchor to its
+    endpoint; loop closures inside one segment are dropped.  The coarse
+    initial poses are the DR chain at the anchors."""
+    P = graph.poses0.t.shape[0]
+    dtype = graph.poses0.t.dtype
+    chain = _dr_chain(graph)
+    idx_a = torch.arange(0, P, stride, device=graph.lc_i.device)
+    ci, cj = graph.lc_i // stride, graph.lc_j // stride
+    lc_adj = se3.compose(se3.between(chain[ci * stride], chain[graph.lc_i]),
+                         se3.compose(_promoted(graph.lc_meas, torch.float64),
+                                     se3.inverse(se3.between(chain[cj * stride], chain[graph.lc_j]))))
+    cgraph = PoseGraph(
+        poses0=_promoted(chain[idx_a], dtype),
+        odo_meas=_promoted(se3.between(chain[idx_a[:-1]], chain[idx_a[1:]]), dtype),
+        odo_sigmas=graph.odo_sigmas * math.sqrt(stride),
+        lc_i=ci,
+        lc_j=cj,
+        lc_meas=_promoted(lc_adj, dtype),
+        lc_sigmas=graph.lc_sigmas,
+        lc_valid=graph.lc_valid & (ci != cj),
+    )
+    return cgraph, chain
+
+
+def _prolongate(coarse_poses: se3.Pose3, chain: se3.Pose3, stride: int) -> se3.Pose3:
+    """Fine initial values from a coarse solution: each pose is its
+    segment anchor's coarse estimate composed with the DR offset from the
+    anchor to it; in the dtype of ``coarse_poses``."""
+    k = torch.arange(chain.t.shape[0], device=chain.t.device) // stride
+    return _promoted(se3.compose(_promoted(coarse_poses[k], torch.float64), se3.between(chain[k * stride], chain)),
+                     coarse_poses.t.dtype)
+
+
+def _coarse_init(graph: PoseGraph, cfg: PoseGraphConfig, err0: torch.Tensor, stride: int, terms):
+    """The coarse-to-fine initial poses and their error: the graph solved at
+    every ``stride``-th pose (no coarse init of its own, a fresh damping),
+    prolongated along the DR chain with pose 0 kept exactly, and adopted
+    only where its error is finite and below ``err0``; else ``poses0`` and
+    ``err0``."""
+    cgraph, chain = _coarse_graph_and_chain(graph, stride)
+    cposes, _ = solve_pose_graph(cgraph, dataclasses.replace(cfg, coarse_init_stride=0),
+                                 allow_coarse_init=False, terms=terms)
+    cand = _prolongate(cposes, chain, stride)
+    cand = se3.cat([graph.poses0[:1], cand[1:]])
+    err_cand = terms.error(cand, graph)
+    better = torch.isfinite(err_cand) & (err_cand < err0)
+    return se3.where(better.expand(graph.poses0.t.shape[0]), cand, graph.poses0), torch.where(better, err_cand, err0)
+
+
 def solve_pose_graph(graph: PoseGraph, cfg: PoseGraphConfig = PoseGraphConfig(), lam0=None, stall0=None,
-                     terms: FactorTerms = FactorTerms()):
+                     terms: FactorTerms = FactorTerms(), allow_coarse_init: bool = True):
     """Batched LM on the full pose graph; returns (poses, SolveInfo).
 
-    One Python iteration per LM trial (damping *0.3 on accept, *10 on
-    reject): the accept/reject and damping update stay on the device; the
-    stall counter (two consecutive trials improving the error by < 1e-6
-    relative end the solve) costs one host read per trial, and a PCG step
-    one per :data:`CG_CHUNK` CG iterations.  ``lam0`` / ``stall0`` resume
-    the damping (else 1e-4) and the stall counter (else 0) of a checkpoint
-    (:mod:`..checkpoint`); ``SolveInfo.lam`` is the damping at exit.
-    ``terms``: the cost and the linearization (:class:`FactorTerms`).  The
-    cost, and so ``SolveInfo.error``, is float64 (:func:`cost_residual`);
-    the poses, Jacobians and steps stay float32."""
+    One Python iteration per LM trial: the accept/reject and damping update
+    stay on the device; the stall counter (two consecutive trials improving
+    the error by < 1e-6 relative end the solve) costs one host read per
+    trial, and a PCG step one per :data:`CG_CHUNK` CG iterations.  ``lam0``
+    / ``stall0`` resume the damping (else 1e-4) and the stall counter (else
+    0) of a checkpoint (:mod:`..checkpoint`); ``SolveInfo.lam`` is the
+    damping at exit.  ``terms``: the cost and the linearization
+    (:class:`FactorTerms`).  The cost, and so ``SolveInfo.error``, is
+    float64 (:func:`cost_residual`); the poses, Jacobians and steps stay
+    float32.
+
+    Damping: one candidate by default, *0.3 on accept and *10 on reject.
+    The direct step with ``cfg.lam_sweep_factors`` of K > 1 values solves
+    the exact step for every ``clip(lam * factor, 1e-9, 1e6)`` at once
+    (:func:`_direct_lm_step_multi`) and keeps the best finite candidate: on
+    accept the damping becomes that candidate's, on reject ``lam *
+    max(max(factors), 10)`` (capped at 1e6).  The PCG kinds run the single
+    schedule whatever the factors, as the JAX package's do.
+
+    ``cfg.coarse_init_stride`` > 1 starts the LM from a coarse-to-fine
+    initialization (:func:`_coarse_init`) when ``allow_coarse_init`` is
+    true, no damping or stall counter is resumed and ``P > 4 * stride``:
+    fresh solves only; a warm-started caller passes
+    ``allow_coarse_init=False``.  ``SolveInfo.error0`` stays the error of
+    ``graph.poses0``; ``SolveInfo.error_init`` is the error the LM started
+    from."""
     P = graph.poses0.t.shape[0]
     L_lc = graph.lc_i.shape[0]
     kind = resolve_pg_solver_kind(cfg.preconditioner, P, L_lc)
-    if tuple(cfg.lam_sweep_factors) != (1.0,):
-        raise NotImplementedError(
-            "lam_sweep_factors (the damping sweep) is an opt-in negative result on ROADMAP's "
-            "not-to-port list; the port runs the single-damping schedule"
-        )
     dtype, dev = graph.poses0.t.dtype, graph.poses0.t.device
     rel_exit_tol = 1e-6
     not_gauge = torch.arange(P, device=dev) != 0
     segs = factor_segments(graph, P)
+    factors = torch.tensor(tuple(cfg.lam_sweep_factors), dtype=dtype, device=dev)
+    decay = 0.3 if factors.numel() == 1 else 1.0
+    up = max(max(cfg.lam_sweep_factors), 10.0)
 
-    poses = graph.poses0
-    err0 = terms.error(poses, graph)
-    err = err0
+    err0 = terms.error(graph.poses0, graph)
+    poses, err = graph.poses0, err0
+    stride = int(cfg.coarse_init_stride or 0)
+    if allow_coarse_init and stride > 1 and lam0 is None and stall0 is None and P > 4 * stride:
+        poses, err = _coarse_init(graph, cfg, err0, stride, terms)
+    err_init = err
     lam = torch.tensor(1e-4 if lam0 is None else float(lam0), dtype=dtype, device=dev)
     stall = 0 if stall0 is None else int(stall0)
     k = cg_total = 0
@@ -429,22 +544,31 @@ def solve_pose_graph(graph: PoseGraph, cfg: PoseGraphConfig = PoseGraphConfig(),
         lam = torch.clamp(lam, 1e-9, 1e6)
         if kind == "direct":
             g, D = _gradient_and_diag(segs, r.double(), Ji.double(), Jj.double())
-            delta = _direct_lm_step(graph, Ji, Jj, g, D, lam, P, L_lc)
+            lams = torch.clamp(lam * factors, 1e-9, 1e6)
+            deltas = _direct_lm_step_multi(graph, Ji, Jj, g, D, lams, P, L_lc)
+            cands = [se3.where(not_gauge, se3.retract(poses, d), poses) for d in deltas]
+            errs = torch.stack([terms.error(c, graph) for c in cands])
+            errs = torch.where(torch.isfinite(errs), errs, torch.full_like(errs, float("inf")))
+            best = torch.argmin(errs)
+            cand, new_err = se3.Pose3(torch.stack([c.R for c in cands])[best],
+                                      torch.stack([c.t for c in cands])[best]), errs[best]
+            lam_acc, lam_rej = torch.clamp(lams[best] * decay, min=1e-9), torch.clamp(lam * up, max=1e6)
         else:
             g, D = _gradient_and_diag(segs, r, Ji, Jj)
             delta, cg_k = _pcg_lm_step(kind, idx_i, idx_j, segs, Ji, Jj, g, D, lam, P, cfg)
             cg_total += cg_k
-        cand = se3.where(not_gauge, se3.retract(poses, delta), poses)
-        new_err = terms.error(cand, graph)
+            cand = se3.where(not_gauge, se3.retract(poses, delta), poses)
+            new_err = terms.error(cand, graph)
+            lam_acc, lam_rej = torch.clamp(lam * 0.3, min=1e-9), torch.clamp(lam * 10.0, max=1e6)
         good = torch.isfinite(new_err) & (new_err < err)
         poses = se3.where(good.expand(P), cand, poses)
         improved = (err - torch.where(good, new_err, err)) > rel_exit_tol * torch.clamp(err, min=1e-30)
         err = torch.where(good, new_err, err)
-        lam = torch.where(good, torch.clamp(lam * 0.3, min=1e-9), torch.clamp(lam * 10.0, max=1e6))
+        lam = torch.where(good, lam_acc, lam_rej)
         k += 1
         stall = 0 if bool(improved) else stall + 1
     return poses, SolveInfo(error0=err0, error=err, iterations=k, stall=stall, cg_iters_total=cg_total,
-                            solver_kind=kind, lam=lam)
+                            solver_kind=kind, lam=lam, error_init=err_init)
 
 
 def pg_pose_marginals(graph: PoseGraph, poses: se3.Pose3) -> torch.Tensor:

@@ -11,7 +11,10 @@ Counterpart of :mod:`diasss_tpu.solvers.tridiag`:
   along the same ``log2(P)`` levels (the JAX package runs two P-step scans);
 * ``solve_block_tridiag_segmented``, ``dense_segment_inverses``,
   ``apply_dense_segment_inverses`` and ``auto_dense_segment`` — the chain
-  cut into independent segments, as PCG preconditioners.
+  cut into independent segments, as PCG preconditioners;
+* ``ChainFactor``, ``chain_factor`` and ``chain_solve`` — the same dense
+  segment inverses joined by their spikes and one reduced boundary system:
+  an exact solve whose every application is a few batched products.
 
 Convention: ``T x = b`` with diagonal blocks ``D`` (P, 6, 6), super-diagonal
 blocks ``U`` (P-1, 6, 6) coupling (i, i+1), sub-diagonal ``U^T``.  The
@@ -278,27 +281,37 @@ def solve_block_tridiag_segmented(D: torch.Tensor, U: torch.Tensor, b: torch.Ten
     return x.reshape(S * segment, 6)[:P]
 
 
-def dense_segment_inverses(D: torch.Tensor, U: torch.Tensor, segment: int) -> torch.Tensor:
-    """(S, 6*segment, 6*segment) explicit inverses of the segments' dense
-    chain matrices — the same preconditioner as
-    :func:`solve_block_tridiag_segmented`, applied as one batched GEMM.
-
-    One float32 LU inverse per segment and LM trial, each its own call:
-    batched LU of such matrices on the CPU (torch 2.13 with oneMKL 2024.2)
-    fails with more than one thread.  The JAX package tried storing the
-    inverse in bf16 and rejected it: the chain matrices are ill-conditioned
-    enough that bf16 rounding wrecks the preconditioner."""
-    D_seg, U_seg = _segment_chains(D, U, segment)
-    S = D_seg.shape[0]
-    m = 6 * segment
-    T = D.new_zeros((S, segment, 6, segment, 6))
-    ii = torch.arange(segment, device=D.device)
+def _segment_matrices(D_seg: torch.Tensor, U_seg: torch.Tensor) -> torch.Tensor:
+    """(S, 6*segment, 6*segment) dense matrices of the segment chains of
+    :func:`_segment_chains`, filled by three batched index assignments."""
+    S, segment = D_seg.shape[:2]
+    T = D_seg.new_zeros((S, segment, 6, segment, 6))
+    ii = torch.arange(segment, device=D_seg.device)
     T[:, ii, :, ii, :] = D_seg.transpose(0, 1)
     if segment > 1:
         jj = ii[:-1]
         T[:, jj, :, jj + 1, :] = U_seg.transpose(0, 1)
         T[:, jj + 1, :, jj, :] = U_seg.transpose(-1, -2).transpose(0, 1)
-    return torch.stack([torch.linalg.inv(M) for M in T.reshape(S, m, m)])
+    return T.reshape(S, 6 * segment, 6 * segment)
+
+
+def _inverses(T: torch.Tensor) -> torch.Tensor:
+    """LU inverses of a batch of matrices, one call each: batched LU of
+    such matrices on the CPU (torch 2.13 with oneMKL 2024.2) fails with more
+    than one thread."""
+    return torch.stack([torch.linalg.inv(M) for M in T])
+
+
+def dense_segment_inverses(D: torch.Tensor, U: torch.Tensor, segment: int) -> torch.Tensor:
+    """(S, 6*segment, 6*segment) explicit inverses of the segments' dense
+    chain matrices — the same preconditioner as
+    :func:`solve_block_tridiag_segmented`, applied as one batched GEMM.
+
+    One float32 LU inverse per segment and LM trial (:func:`_inverses`).
+    The JAX package tried storing the inverse in bf16 and rejected it: the
+    chain matrices are ill-conditioned enough that bf16 rounding wrecks the
+    preconditioner."""
+    return _inverses(_segment_matrices(*_segment_chains(D, U, segment)))
 
 
 def apply_dense_segment_inverses(Minv: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -318,3 +331,74 @@ def auto_dense_segment(P: int, requested: int, budget_floats: int = 150_000_000)
     while seg * 2 <= requested and 36 * P * (seg * 2) <= budget_floats:
         seg *= 2
     return min(seg, max(8, requested))
+
+
+class ChainFactor(NamedTuple):
+    """Reusable exact factorization of a block-tridiagonal chain (two-level
+    SPIKE on one device): the chain cut into S segments of ``segment``
+    rows, each segment's dense (m, m) matrix inverted once (m = 6 *
+    segment), the right and left spikes ``F``, ``G`` coupling each segment
+    to its neighbours, and the (12S, 12S) reduced boundary system inverted
+    once.  Every :func:`chain_solve` is then batched products only: ``w =
+    Minv b`` per segment, one boundary correction, two spike products.
+
+    Unlike :func:`dense_segment_inverses`, which drops the couplings across
+    segment borders and is only a preconditioner, this solves the whole
+    chain: it equals :func:`solve_block_tridiag_multi`.  The segment size
+    and the real row count are read from the shapes at apply time."""
+
+    Minv: torch.Tensor  # (S, m, m) per-segment dense inverses
+    F: torch.Tensor  # (S, m, 6) right spikes (coupling to the next segment)
+    G: torch.Tensor  # (S, m, 6) left spikes (coupling to the previous segment)
+    Rinv: torch.Tensor  # (12S, 12S) inverse of the reduced boundary system
+
+
+def chain_factor(D: torch.Tensor, U: torch.Tensor, segment: int = 64) -> ChainFactor:
+    """Factor the SPD block-tridiagonal chain (``D`` (P, 6, 6), ``U`` (P-1,
+    6, 6)) into a :class:`ChainFactor`: the segment inverses of
+    :func:`dense_segment_inverses`, two spike products and one (12S, 12S)
+    inverse, in the dtype of ``D``."""
+    P = D.shape[0]
+    S = -(-P // segment)
+    m = 6 * segment
+    dev, dtype = D.device, D.dtype
+    D_seg, U_seg = _segment_chains(D, U, segment)
+    Minv = _inverses(_segment_matrices(D_seg, U_seg))
+    # U_bd[s] couples segment s's last row to segment s+1's first; the last
+    # segment's falls in the zero padding
+    U_bd = torch.cat([U, U.new_zeros((S * segment - P + 1, 6, 6))])[segment - 1::segment]
+    U_prev = torch.cat([U_bd.new_zeros((1, 6, 6)), U_bd[:-1]])
+    F = Minv[:, :, m - 6:] @ U_bd
+    G = Minv[:, :, :6] @ U_prev.transpose(-1, -2)
+
+    # reduced system over y = [x_s[first 6], x_s[last 6]] for every segment s:
+    #   x_s[r] + F_s[r] y_{s+1,first} + G_s[r] y_{s-1,last} = w_s[r],  r in (first, last)
+    M = torch.zeros((S, 2, 6, S, 2, 6), dtype=dtype, device=dev)
+    s = torch.arange(S, device=dev)
+    r = torch.arange(2, device=dev)
+    M[s[:, None], r[None, :], :, s[:, None], r[None, :], :] = torch.eye(6, dtype=dtype, device=dev)
+    if S > 1:
+        M[s[:-1], :, :, s[1:], 0, :] = torch.stack([F[:-1, :6], F[:-1, m - 6:]], 1)
+        M[s[1:], :, :, s[:-1], 1, :] = torch.stack([G[1:, :6], G[1:, m - 6:]], 1)
+    Rinv = torch.linalg.inv(M.reshape(12 * S, 12 * S))
+    return ChainFactor(Minv=Minv, F=F, G=G, Rinv=Rinv)
+
+
+def chain_solve(fac: ChainFactor, b: torch.Tensor) -> torch.Tensor:
+    """Exact chain solve with a :class:`ChainFactor`; ``b`` (P, 6) or (P, 6,
+    R), returns the same shape."""
+    vec = b.dim() == 2
+    if vec:
+        b = b[:, :, None]
+    P, _, R = b.shape
+    S, m, _ = fac.Minv.shape
+    segment = m // 6
+    b = torch.cat([b, b.new_zeros((S * segment - P, 6, R))])
+    w = fac.Minv @ b.reshape(S, m, R)  # (S, m, R)
+    wb = torch.stack([w[:, :6], w[:, m - 6:]], 1)  # (S, 2, 6, R)
+    y = (fac.Rinv @ wb.reshape(12 * S, R)).reshape(S, 2, 6, R)
+    zero = b.new_zeros((1, 6, R))
+    y_next = torch.cat([y[1:, 0], zero])  # (S, 6, R)
+    y_prev = torch.cat([zero, y[:-1, 1]])
+    x = (w - fac.F @ y_next - fac.G @ y_prev).reshape(S * segment, 6, R)[:P]
+    return x[:, :, 0] if vec else x

@@ -139,11 +139,17 @@ def test_all_levels_mostly_identical(detections):
 
 
 def test_stacked_layout_and_other_descriptors_raise():
-    """The stacked layout raises (not-to-port list); the orb descriptor
-    gives +-1 bits at the SIFT path's keypoints."""
+    """The stacked layout runs where the per-level one does, with the same
+    static capacity (on a blank image: no valid keypoint); the orb
+    descriptor gives +-1 bits at the SIFT path's keypoints.
+    (``tests/test_torch_optin.py`` holds the stacked layout to both the
+    per-level one and the JAX package's.)"""
     img = torch.zeros(64, 64)
-    with pytest.raises(NotImplementedError, match="not-to-port"):
-        detector.detect_features(img, stacked=True)
+    stacked = detector.detect_features(img, stacked=True)
+    per_level = detector.detect_features(img)
+    for f in stacked._fields:
+        assert getattr(stacked, f).shape == getattr(per_level, f).shape, f
+    assert not stacked.valid.any() and not per_level.valid.any()
     rng = np.random.default_rng(6)
     img = torch.as_tensor(rng.uniform(0, 255, (96, 128)).astype(np.float32))
     cfg = DetectorConfig(descriptor="orb", n_features=150)

@@ -130,12 +130,13 @@ def test_solve_full_ba_matches_jax(problems):
 
 def test_auto_resolves_to_direct_and_raises_above_the_guard():
     """"auto" is direct under the guard and dense_seg above it (the K_pad
-    limit and the 4 GB buffer limit each); the PCG kinds resolve as given;
-    only "chain" (ROADMAP's not-to-port list) raises."""
+    limit and the 4 GB buffer limit each); the PCG kinds, "chain" among
+    them, resolve as given; an unknown kind raises."""
     assert full_ba.resolve_ba_solver_kind("auto", 4200, 2048) == "direct"
     assert full_ba.resolve_ba_solver_kind("direct", 600, 64) == "direct"
     for args, kind in ((("auto", 4200, 4096), "dense_seg"), (("auto", 60000, 2048), "dense_seg"),
                        (("dense_seg", 600, 64), "dense_seg"), (("tridiag", 600, 64), "tridiag")):
         assert full_ba.resolve_ba_solver_kind(*args) == kind
-    with pytest.raises(NotImplementedError, match="not-to-port"):
-        full_ba.resolve_ba_solver_kind("chain", 600, 64)
+    assert full_ba.resolve_ba_solver_kind("chain", 600, 64) == "chain"
+    with pytest.raises(ValueError, match="unknown"):
+        full_ba.resolve_ba_solver_kind("cholmod", 600, 64)

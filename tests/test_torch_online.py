@@ -7,10 +7,13 @@ Tolerances, and why:
   ``_pad_ba_problem`` on a BAProblem carried over from the JAX package:
   index rows, masks and padding identical; values 1e-6 (pure gathers and
   copies; the poses of the constant endpoints are gathers too);
-* the two-stage annotation stream, with and without a fixed-lag window:
-  after every arrival the same pose count and loop closures in the solve,
-  translations within 1e-3 m (the loop-closure mini-solves and the
-  pose-graph LM agree to a few 1e-5 m, as in the batch pipeline's tests);
+* the two-stage annotation stream, with and without a fixed-lag window, and
+  without one under ``coarse_init_stride=4``: after every arrival the same
+  pose count and loop closures in the solve, translations within 1e-3 m
+  (the loop-closure mini-solves and the pose-graph LM agree to a few 1e-5
+  m, as in the batch pipeline's tests), and no coarse-to-fine
+  initialization run (the stream's warm-started solves pass
+  ``allow_coarse_init=False``, as the JAX package's do);
 * the automatic stream (dense per-pair matching, warm-started full BA) is
   held to the port's own batch run with ``rematch_iters=0``, within the JAX
   package's own bound for the same comparison
@@ -80,7 +83,14 @@ def stream_frames():
     return jax_and_port_frames(small_survey(n_lines=3, n_pings=STREAM_PINGS, n_bins=256, n_landmarks=40, seed=7))
 
 
-@pytest.fixture(scope="module", params=[2, None], ids=["window2", "nowindow"])
+# a coarse-to-fine stride: the stream's warm-started solves skip it, as the
+# JAX package's do (allow_coarse_init=False)
+COARSE_CFG = dataclasses.replace(STREAM_CFG, pose_graph=dataclasses.replace(STREAM_CFG.pose_graph,
+                                                                            coarse_init_stride=4))
+
+
+@pytest.fixture(scope="module", params=[(2, STREAM_CFG), (None, STREAM_CFG), (None, COARSE_CFG)],
+                ids=["window2", "nowindow", "nowindow_coarse4"])
 def window(request):
     return request.param
 
@@ -88,19 +98,31 @@ def window(request):
 @pytest.fixture(scope="module")
 def port_stream(stream_frames, window):
     """The port's two-stage annotation stream: (poses, loop closures in the
-    solve, frame slices) after every arrival."""
-    p = online.OnlineSlam(port_cfg(STREAM_CFG), window_frames=window, device="cpu")
-    return [(p.add_frame(f).t.numpy(), p.state.n_lc, list(p.state.frame_slices)) for f in stream_frames[1]]
+    solve, frame slices, coarse initializations run) after every arrival."""
+    from diasss_tpu_torch.solvers import pose_graph
+
+    coarse_runs = []
+    entry = pose_graph._coarse_init
+
+    def counted(*args, **kwargs):
+        coarse_runs.append(1)
+        return entry(*args, **kwargs)
+
+    p = online.OnlineSlam(port_cfg(window[1]), window_frames=window[0], device="cpu")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(pose_graph, "_coarse_init", counted)
+        return [(p.add_frame(f).t.numpy(), p.state.n_lc, list(p.state.frame_slices), len(coarse_runs))
+                for f in stream_frames[1]]
 
 
 @pytest.fixture(scope="module")
 def jax_stream(stream_frames, window):
-    j = jonline.OnlineSlam(STREAM_CFG, window_frames=window)
+    j = jonline.OnlineSlam(window[1], window_frames=window[0])
     return [(np.asarray(j.add_frame(f).t), j.state.n_lc) for f in stream_frames[0]]
 
 
 def test_port_stream_grows_by_one_frame_per_arrival(port_stream):
-    for k, (t, n_lc, slices) in enumerate(port_stream):
+    for k, (t, n_lc, slices, _) in enumerate(port_stream):
         total = STREAM_PINGS * (k + 1)
         assert t.shape == (total, 3) and np.isfinite(t).all()
         assert slices == [slice(STREAM_PINGS * f, STREAM_PINGS * (f + 1)) for f in range(k + 1)]
@@ -108,10 +130,11 @@ def test_port_stream_grows_by_one_frame_per_arrival(port_stream):
 
 
 def test_two_stage_stream_matches_jax_after_every_arrival(port_stream, jax_stream):
-    for (tt, tn, _), (jt, jn) in zip(port_stream, jax_stream):
+    for (tt, tn, _, coarse_runs), (jt, jn) in zip(port_stream, jax_stream):
         assert tt.shape == jt.shape
         assert tn == jn
         np.testing.assert_allclose(tt, jt, atol=1e-3)
+        assert coarse_runs == 0  # warm-started solves skip the coarse init, as the JAX package's do
 
 
 @pytest.fixture(scope="module")

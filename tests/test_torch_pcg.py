@@ -175,10 +175,8 @@ def test_pcg_full_ba_matches_jax(ba_problems, kind):
 ])
 def test_resolve_pg_solver_kind_guards(P, L_lc, kind):
     assert pose_graph.resolve_pg_solver_kind("auto", P, L_lc) == kind
-    for explicit in ("direct", "jacobi", "tridiag", "dense_seg"):
+    for explicit in ("direct", "jacobi", "tridiag", "dense_seg", "chain"):
         assert pose_graph.resolve_pg_solver_kind(explicit, P, L_lc) == explicit
-    with pytest.raises(NotImplementedError, match="not-to-port"):
-        pose_graph.resolve_pg_solver_kind("chain", P, L_lc)
     with pytest.raises(ValueError):
         pose_graph.resolve_pg_solver_kind("cholmod", P, L_lc)
 

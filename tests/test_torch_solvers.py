@@ -195,19 +195,45 @@ def test_direct_pose_graph_solve_matches_jax(graph_problem):
     (PoseGraphConfig(), 1025),
 ])
 def test_unported_solver_kinds_raise(cfg, n_lc):
-    """Only "chain" (ROADMAP's not-to-port list) still raises; the PCG kinds
-    and "auto" above the direct step's 1024 factors resolve."""
+    """Every kind of the JAX package resolves on one device, "chain" among
+    them, and "auto" above the direct step's 1024 factors is dense_seg;
+    what still raises: an unknown kind, and "chain" on the
+    sequence-parallel path, which has no distributed form of it (the JAX
+    package's resolvers hand it to their block-Jacobi branch: ROADMAP
+    hazards)."""
+    from diasss_tpu_torch.parallel import seq
+
     assert pose_graph.resolve_pg_solver_kind("auto", 100, 10) == "direct"
     expected = "dense_seg" if cfg.preconditioner == "auto" else cfg.preconditioner
     assert pose_graph.resolve_pg_solver_kind(cfg.preconditioner, 3000, n_lc) == expected
-    with pytest.raises(NotImplementedError, match="not-to-port"):
-        pose_graph.resolve_pg_solver_kind("chain", 3000, n_lc)
+    assert pose_graph.resolve_pg_solver_kind("chain", 3000, n_lc) == "chain"
+    with pytest.raises(ValueError, match="unknown"):
+        pose_graph.resolve_pg_solver_kind("cholmod", 3000, n_lc)
+    assert seq.resolve_seq_pg_solver_kind(cfg.preconditioner, 750, n_lc) == expected
+    with pytest.raises(NotImplementedError, match="sequence-parallel"):
+        seq.resolve_seq_pg_solver_kind("chain", 750, n_lc)
+    with pytest.raises(NotImplementedError, match="sequence-parallel"):
+        seq.resolve_seq_ba_solver_kind("chain", 750, 4, 64)
 
 
 def test_damping_sweep_is_not_ported(graph_problem):
+    """The damping sweep is not ported to the sequence-parallel direct step,
+    as in the JAX package: there ``lam_sweep_factors`` is not read and the
+    solve runs the single-damping schedule (on a one-rank mesh, the same
+    result bit for bit), while the one-device direct step sweeps (its parity
+    with the JAX package: ``tests/test_torch_optin.py``)."""
+    from diasss_tpu_torch.parallel import seq
+    from diasss_tpu_torch.parallel.collectives import Mesh
+
     _, tg, cfg, _ = graph_problem
-    with pytest.raises(NotImplementedError, match="not-to-port"):
-        pose_graph.solve_pose_graph(tg, dataclasses.replace(port_cfg(cfg), lam_sweep_factors=(0.1, 1.0, 10.0)))
+    mesh = Mesh(group=None, rank=0, size=1, device=torch.device("cpu"), transport="gloo", ranks=(0,))
+    sweep = dataclasses.replace(port_cfg(cfg), lam_sweep_factors=(0.1, 1.0, 10.0))
+    p1, i1 = seq.seq_pose_graph_solve(mesh, tg, port_cfg(cfg))
+    pk, ik = seq.seq_pose_graph_solve(mesh, tg, sweep)
+    assert ik.iterations == i1.iterations and float(ik.lam) == float(i1.lam)
+    assert torch.equal(pk.t, p1.t) and torch.equal(pk.R, p1.R)
+    _, one = pose_graph.solve_pose_graph(tg, sweep)
+    assert one.solver_kind == "direct" and float(one.error) < 1e-2 * float(one.error0)
 
 
 def test_direct_step_holds_a_12k_chain_at_low_damping():

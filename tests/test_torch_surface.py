@@ -46,9 +46,6 @@ EXCLUDED_NAMES = {
     "diasss_tpu.features.fast.fast_score": "renamed fast_score_plain: the plain version beside the CUDA kernel",
     "diasss_tpu.solvers.tridiag.thomas_block_tridiag_multi":
         "a backend-keyed branch (ROADMAP hazard 1): the port's chain solve is cyclic reduction everywhere",
-    "diasss_tpu.solvers.tridiag.ChainFactor": "the 'chain' preconditioner: ROADMAP's not-to-port list",
-    "diasss_tpu.solvers.tridiag.chain_factor": "the 'chain' preconditioner: ROADMAP's not-to-port list",
-    "diasss_tpu.solvers.tridiag.chain_solve": "the 'chain' preconditioner: ROADMAP's not-to-port list",
     "diasss_tpu.parallel.seq.shard_map":
         "JAX's SPMD transform (a version shim): the port runs one process per rank on torch.distributed",
 }

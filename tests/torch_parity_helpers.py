@@ -159,10 +159,66 @@ def c13_probe(n_lines_list=(10, 20)):
         print(json.dumps(out), flush=True)
 
 
+def options_probe(n_lines=20):
+    """The pose graph of both packages' two-stage run (as :func:`c13_probe`
+    builds it) solved again by each package with the direct step: plain,
+    with ``coarse_init_stride=4`` and with ``lam_sweep_factors=(0.1, 1,
+    10)``; trials, final error, ATE and seconds of each, one JSON line per
+    option."""
+    import json
+    import time
+
+    import diasss_tpu.pipeline as jpipe
+    from diasss_tpu.config import PipelineConfig, PoseGraphConfig
+    from diasss_tpu.solvers import pose_graph as jpg
+    from diasss_tpu_torch.pipeline import run_slam
+    from diasss_tpu_torch.solvers import pose_graph
+
+    graphs = {}
+    entries = {"jax": (jpipe, jpipe.solve_pose_graph), "port": (pose_graph, pose_graph.solve_pose_graph)}
+
+    def capture(key):
+        def wrapped(*args, **kwargs):
+            graphs[key] = args[0]
+            return entries[key][1](*args, **kwargs)
+
+        entries[key][0].solve_pose_graph = wrapped
+
+    capture("jax")
+    capture("port")
+    survey = make_survey(n_lines=n_lines, n_pings=600, n_bins=512, n_landmarks=60)
+    gt = [l.gt_poses for l in survey.lines]
+    jf, tf = jax_and_port_frames(survey)
+    jpipe.run_slam(jf, PipelineConfig(), gt_rows_list=gt, run_eval2=False)
+    run_slam(tf, port_cfg(PipelineConfig()), gt_rows_list=gt, run_eval2=False, rng=JaxRng())
+    for module, entry in entries.values():  # the port's coarse solve calls the module's entry again
+        module.solve_pose_graph = entry
+    gt_t = np.concatenate(gt)[:, 3:6]
+
+    def ate(t):
+        return float(np.sqrt(np.mean(np.sum((np.asarray(t) - gt_t) ** 2, axis=1))))
+
+    for name, kw in (("direct", {}), ("coarse4", {"coarse_init_stride": 4}),
+                     ("sweep", {"lam_sweep_factors": (0.1, 1.0, 10.0)})):
+        cfg = PoseGraphConfig(preconditioner="direct", **kw)
+        out = {"poses": len(gt_t), "option": name}
+        for label, solve in (("jax", lambda: jpg.solve_pose_graph(graphs["jax"], cfg)),
+                             ("port", lambda: pose_graph.solve_pose_graph(graphs["port"], port_cfg(cfg)))):
+            t0 = time.perf_counter()
+            poses, info = solve()
+            out[label] = {"trials": int(info.iterations), "error": float(info.error), "ate": ate(poses.t),
+                          "seconds": time.perf_counter() - t0}
+        print(json.dumps(out), flush=True)
+
+
 if __name__ == "__main__":
-    # python tests/torch_parity_helpers.py [n_lines ...]  (from the repository root, PYTHONPATH=.)
+    # python tests/torch_parity_helpers.py [n_lines ...]  (from the repository root, PYTHONPATH=.);
+    # python tests/torch_parity_helpers.py --options [n_lines]: options_probe
     import sys
 
     jax.config.update("jax_platforms", "cpu")
     torch.set_num_threads(4)
-    c13_probe(tuple(int(a) for a in sys.argv[1:]) or (10, 20))
+    if sys.argv[1:2] == ["--options"]:
+        options_probe(*[int(a) for a in sys.argv[2:3]])
+    else:
+        c13_probe(tuple(int(a) for a in sys.argv[1:]) or (10, 20))
