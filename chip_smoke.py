@@ -46,7 +46,10 @@ Phases (every one asserts; nothing is caught):
    runs; this slice's main path through both kernels): launch counts read
    around it, ``pose_marginals`` seconds, sigma statistics (finite, zero
    at the gauge pose, positive elsewhere), peak memory; then the
-   estimated-pose mosaic of that run written to a temporary PNG;
+   estimated-pose mosaic of that run written to a temporary PNG; then, on
+   the automatic survey, ``geo_image`` with sensor lever arms (``[geo
+   lever]``: card against CPU within 5e-5 m) and the keyframes built in
+   float64 (``[keyframes f64]``: geo card against CPU within 1e-9 m);
 8. the annotation two-stage path at 3000 and 12000 poses, and full BA on
    annotations at 4200 poses (5 lines + 2 tie lines), the last one also
    profiled; on the same keyframes, one pass each of the PCG family beside
@@ -57,7 +60,8 @@ Phases (every one asserts; nothing is caught):
    marginals of the 12000-pose chain with 1024 loop closures, their memory
    envelope; then the JAX package's opt-in solver options, solving only on
    the graph and problem those passes built, each after a one-trial
-   warm-up: the 12000-pose graph with ``coarse_init_stride=4``, with the
+   warm-up, beside the direct solve of the 12000-pose graph (its trials
+   and ``SolveInfo.grad_norm``, finite): that graph with ``coarse_init_stride=4``, with the
    damping sweep (0.1, 1, 10; peak memory) and with ``"chain"`` beside a
    ``dense_seg`` solve, and the 4200-pose problem with ``"chain"`` beside
    the ``dense_seg`` pass;
@@ -105,7 +109,8 @@ Phases (every one asserts; nothing is caught):
     collective against its definition on CUDA tensors, a send to itself
     included (the only NCCL run until a host with several GPUs exists);
     ``[mesh 4]``, four ranks spawned on cuda:0 over gloo, each cell held to
-    the one-device run of this call: annotations 12k (direct step; a
+    the one-device run of this call: annotations 12k (direct step, its
+    ``grad_norm`` finite and equal on every rank; a
     ``dense_seg`` pass held to the one-device ``dense_seg`` pass), full BA
     4.2k (direct step: poses), automatic 1.6k (the data-parallel dense
     matcher, B1 and B2 on every rank, and sequence-parallel full BA), detected
@@ -140,6 +145,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -617,6 +623,70 @@ def auto_phase(dev, survey, cfg, gt, card, warm_ate):
     return fast_n, qcorr_n, wall
 
 
+GEO_LEVER_TOL = 5e-5  # m: float32 positions of tens of metres, card against CPU
+F64_GEO_TOL = 1e-9  # m: float64 geo, card against CPU
+TF_STB, TF_PORT = (0.3, -0.2, 0.1), (-0.25, 0.15, 0.0)  # sensor lever arms (x, y, z) in metres
+
+
+def surface_phase(dev, card, survey):
+    """The keyword surface the JAX package has and the automatic path does
+    not reach: ``geo_image`` with sensor lever arms on every line's DR rows
+    and ground ranges (card against CPU, :data:`GEO_LEVER_TOL`; the keyframe
+    builders take no lever arms, in either package) and the keyframes built
+    in float64 (card against CPU: geo within :data:`F64_GEO_TOL`, poses,
+    altitudes, ground ranges and raw exact; the float32 normalization and
+    mask may differ where the card's frame-wide mean rounds otherwise)."""
+    from diasss_tpu_torch.frame import build_keyframes_batch
+    from diasss_tpu_torch.geometry import sonar
+
+    t_phase = time.perf_counter()
+    lever_err, shift_err = 0.0, 0.0
+    for l in survey.lines:
+        def geo(device, *levers):
+            dr = torch.as_tensor(l.dr_poses, dtype=torch.float32, device=device)
+            gr = torch.as_tensor(l.ground_ranges, dtype=torch.float32, device=device)
+            return sonar.geo_image(dr[:, 3:5], dr[:, 2], gr, l.image.shape[1], *levers).cpu()
+
+        card_geo, cpu_geo = geo(dev, TF_STB, TF_PORT), geo("cpu", TF_STB, TF_PORT)
+        lever_err = max(lever_err, float((card_geo - cpu_geo).abs().max()))
+        half = l.image.shape[1] // 2
+        shift = geo(dev) - card_geo
+        want = torch.tensor([TF_PORT[:2]] * half + [TF_STB[:2]] * half)
+        shift_err = max(shift_err, float((shift - want).abs().max()))
+    check(lever_err <= GEO_LEVER_TOL and shift_err <= GEO_LEVER_TOL,
+          f"[geo lever] card against CPU {lever_err}, lever shift off by {shift_err} (gate {GEO_LEVER_TOL})")
+    print(f"[geo lever] geo_image with tf_stb {TF_STB}, tf_port {TF_PORT} on {len(survey.lines)} lines of "
+          f"{survey.lines[0].image.shape}: card against CPU max abs {lever_err:.3e} m, each side moved by its lever "
+          f"arm within {shift_err:.3e} m (gate {GEO_LEVER_TOL:g} m) on {card}")
+
+    items = [(l.img_id, l.image, l.dr_poses, l.altitudes, l.ground_ranges, l.annos) for l in survey.lines]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card_f = build_keyframes_batch(items, dtype=torch.float64, device=dev)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    cpu_f = build_keyframes_batch(items, dtype=torch.float64, device="cpu")
+    geo_err, norm_off, mask_off, pixels = 0.0, 0, 0, 0
+    for a, b in zip(card_f, cpu_f):
+        for k in ("raw", "geo", "dr_poses", "altitudes", "ground_ranges"):
+            check(getattr(a, k).dtype == torch.float64, f"[keyframes f64] {k} is {getattr(a, k).dtype}")
+        for k in ("raw", "dr_poses", "altitudes", "ground_ranges"):
+            check(torch.equal(getattr(a, k).cpu(), getattr(b, k)), f"[keyframes f64] {k} differs from the CPU's")
+        geo_err = max(geo_err, float((a.geo.cpu() - b.geo).abs().max()))
+        diff = (a.norm.cpu().to(torch.int16) - b.norm.to(torch.int16)).abs()
+        check(int(diff.max()) <= 1, f"[keyframes f64] norm off by {int(diff.max())} grey levels")
+        norm_off += int((diff > 0).sum())
+        mask_off += int((a.mask.cpu() != b.mask).sum())
+        pixels += b.mask.numel()
+    check(geo_err <= F64_GEO_TOL and norm_off <= 1e-3 * pixels and mask_off <= 1e-3 * pixels,
+          f"[keyframes f64] geo {geo_err} (gate {F64_GEO_TOL}), norm off on {norm_off}, mask on {mask_off} of "
+          f"{pixels} pixels")
+    print(f"[keyframes f64] {len(card_f)} float64 keyframes built on the card in {seconds:.4f} s: geo against the "
+          f"CPU's float64 build max abs {geo_err:.3e} m (gate {F64_GEO_TOL:g} m), poses, altitudes, ground ranges and "
+          f"raw equal, norm off by one on {norm_off} and mask different on {mask_off} of {pixels} pixels; both "
+          f"lines {time.perf_counter() - t_phase:.3f} s on {card}")
+
+
 def check_poses(result, label):
     check(bool(torch.isfinite(result.poses.t).all()) and bool(torch.isfinite(result.poses.R).all()),
           f"{label}: non-finite poses")
@@ -847,8 +917,11 @@ def pg_options_phase(card, survey, call, direct):
     _, d_info, d_s, d_peak, d_ate, _ = run(base)
     check(abs(d_ate - direct.ate_est) <= 1e-4, f"anno {P}: the direct solve alone gave ATE {d_ate!r}, the pass "
                                                 f"{direct.ate_est!r}")
-    print(f"[anno {P}] {L} loop closures; the direct solve alone: {d_info.iterations} trials, {d_s:.4f} s, peak "
-          f"{d_peak / 2**20:.1f} MiB, ATE {d_ate!r} m (the pass: {direct.ate_est!r} m) on {card}")
+    d_gn = float(d_info.grad_norm)
+    check(math.isfinite(d_gn), f"anno {P}: the direct solve's grad_norm is {d_gn}")
+    print(f"[anno {P}] {L} loop closures; the direct solve alone: {d_info.iterations} trials, grad_norm {d_gn!r} "
+          f"(last trial), {d_s:.4f} s, peak {d_peak / 2**20:.1f} MiB, ATE {d_ate!r} m (the pass: {direct.ate_est!r} "
+          f"m) on {card}")
 
     _, info, s, peak, ate, capped = run(dataclasses.replace(base, coarse_init_stride=4))
     adopted = bool(info.error_init < info.error0)
@@ -879,7 +952,7 @@ def pg_options_phase(card, survey, call, direct):
           f"peak {peak / 2**20:.1f} MiB, ATE {ate:.4f} m; the dense_seg solve of the same graph: "
           f"{ds_info.iterations} trials, {ds_info.cg_iters_total} CG, {ds_s:.4f} s, ATE {ds_ate:.4f} m; direct "
           f"{d_s:.4f} s, ATE {direct.ate_est:.4f} m on {card}")
-    return ds_ate, ds_info.cg_iters_total
+    return ds_ate, ds_info.cg_iters_total, d_gn
 
 
 def ba_chain_phase(card, survey, call, direct, dense_seg):
@@ -1567,6 +1640,7 @@ def mesh_rank(rank: int, world: int, tmp: str):
                          n_lc=res.n_lc_accepted, pairs=len(res.pair_ids), frames=len(res.frame_slices),
                          trials=[i.iterations for i in infos], cg=[i.cg_iters_total for i in infos],
                          stalls=[i.stall for i in infos], errors=[float(i.error) for i in infos],
+                         grad_norms=[float(i.grad_norm) for i in infos if hasattr(i, "grad_norm")],
                          error=res.solve_error)
 
     mesh_cfg = dict(mesh_devices=world)
@@ -1752,6 +1826,8 @@ def mesh4_phase(card, refs):
         peaks = ", ".join(f"{r[name]['peak_mib']:.0f}" for r in ranks)
         single = refs.get(name + "_wall", refs.get(name.split()[0] + "_wall"))
         solves = f"LM trials {c['trials']}, CG iterations {c['cg']}; " if "trials" in c and isinstance(c["trials"], list) else ""
+        if c.get("grad_norms"):
+            solves += f"pose-graph grad_norm {c['grad_norms']} on rank 0; "
         print(f"[mesh 4] {name}: {extra}; {solves}wall {c['wall']:.3f} s (single device "
               f"{'not run' if single is None else f'{single:.3f}'} s), peak MiB per rank {peaks}; {MESH_LABEL}; on {card}")
 
@@ -1762,7 +1838,12 @@ def mesh4_phase(card, refs):
                     gate(r[name][key] == r0[name][key], f"[mesh 4] {name}: ranks differ in {key}")
 
     c = r0["anno12k direct"]
-    line("anno12k direct", f"ATE DR/EST {c['ate_dr']:.4f}/{c['ate_est']:.4f} m against the single device's "
+    gn = [r["anno12k direct"]["grad_norms"] for r in ranks]
+    gate(len(gn[0]) == 1 and math.isfinite(gn[0][0]) and all(g == gn[0] for g in gn),
+         f"[mesh 4] anno12k direct: grad_norm per rank {gn}, must be finite and equal")
+    line("anno12k direct", f"grad_norm equal on the {MESH_N} ranks (the single device's direct solve "
+                           f"{refs['anno12k_grad_norm']!r}), "
+                           f"ATE DR/EST {c['ate_dr']:.4f}/{c['ate_est']:.4f} m against the single device's "
                            f"{refs['anno12k']:.4f}, solve error {c['error']:.4f} against {refs['anno12k_error']:.4f}, "
                            f"largest pose gap to the single device {np.abs(anno_t - refs['anno12k_t']).max():.2e} m, "
                            f"capped {c['capped']}, counters {json.dumps(c['counters'])}")
@@ -1943,6 +2024,7 @@ def main() -> int:
                 auto_capped=warm.solve_capped, auto_n_lc=warm.n_lc_accepted)
     marg_cfg = dataclasses.replace(auto_cfg, full_ba=dataclasses.replace(auto_cfg.full_ba, marginals=True))
     fast_marg, qcorr_marg = auto_marginals_phase(dev, auto_survey, marg_cfg, auto_gt, card)
+    surface_phase(dev, card, auto_survey)
 
     fast_detected = detected_phase(dev)
     fast_stacked, b1_stacked_err = detected_stacked_phase(dev, card)
@@ -1965,8 +2047,8 @@ def main() -> int:
     refs.update(anno12k=result12k.ate_est, anno12k_error=result12k.solve_error,
                 anno12k_wall=result12k.timings["timed_pass_wall"], anno12k_t=result12k.poses.t.cpu().numpy())
     marginals_envelope(dev, survey12k, result12k.poses, card)
-    refs["anno12k_dense_seg"], refs["anno12k_dense_seg_cg"] = pg_options_phase(card, survey12k, pg_calls[-1],
-                                                                                 result12k)
+    refs["anno12k_dense_seg"], refs["anno12k_dense_seg_cg"], refs["anno12k_grad_norm"] = pg_options_phase(
+        card, survey12k, pg_calls[-1], result12k)
     del survey12k, result12k, pg_calls
     ba_kept = {}
     with captured(full_ba, "solve_full_ba") as ba_calls:

@@ -27,7 +27,7 @@ class Keyframe(NamedTuple):
     layouts as :class:`diasss_tpu.frame.Keyframe`)."""
 
     img_id: int
-    raw: torch.Tensor  # (N, M) float32 raw intensities
+    raw: torch.Tensor  # (N, M) raw intensities (float32 unless built in another dtype)
     norm: torch.Tensor  # (N, M) uint8 normalized image
     mask: torch.Tensor  # (N, M) bool keypoint-validity mask
     geo: torch.Tensor  # (N, M, 2) world (x, y) per pixel
@@ -91,18 +91,21 @@ def build_keyframes_batch(
     items,
     norm_cfg: NormalizeConfig = NormalizeConfig(),
     mask_cfg: MaskConfig = MaskConfig(),
+    dtype: torch.dtype = torch.float32,
     device: torch.device | str = "cuda",
 ):
     """Keyframes for ``items`` = ``(img_id, raw, dr_poses, altitudes,
     ground_ranges[, annos])`` tuples, on the card unless ``device`` says
     otherwise.  Equal-shape lines are stacked and preprocessed as one batch;
-    mixed shapes fall back to per-frame builds."""
+    mixed shapes fall back to per-frame builds.  The raw image, poses,
+    altitudes, ground ranges and geo are in ``dtype``; normalization and
+    the mask work in float32 whatever it is, as the JAX package's do."""
     shapes = {(np.shape(it[1]), np.shape(it[2]), np.shape(it[3])) for it in items}
     if len(shapes) != 1:
-        return [build_keyframe(*it, norm_cfg=norm_cfg, mask_cfg=mask_cfg, device=device)
+        return [build_keyframe(*it, norm_cfg=norm_cfg, mask_cfg=mask_cfg, dtype=dtype, device=device)
                 for it in items]
 
-    def up(k, dtype=torch.float32):
+    def up(k):
         return torch.as_tensor(np.stack([it[k] for it in items]), dtype=dtype, device=device)
 
     raws, poses, alts, grs = up(1), up(2), up(3), up(4)
@@ -129,10 +132,11 @@ def build_keyframe(
     annos: Optional[np.ndarray] = None,
     norm_cfg: NormalizeConfig = NormalizeConfig(),
     mask_cfg: MaskConfig = MaskConfig(),
+    dtype: torch.dtype = torch.float32,
     device: torch.device | str = "cuda",
 ) -> Keyframe:
     """One keyframe: upload the line and run normalize + mask + geo."""
     return build_keyframes_batch(
         [(img_id, raw, dr_poses, altitudes, ground_ranges, annos)],
-        norm_cfg=norm_cfg, mask_cfg=mask_cfg, device=device,
+        norm_cfg=norm_cfg, mask_cfg=mask_cfg, dtype=dtype, device=device,
     )[0]

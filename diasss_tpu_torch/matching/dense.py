@@ -449,20 +449,22 @@ def dense_matching_stacked(pair_ids, img_ids, feats_list, norm_list, geo_list, d
 
 
 
-def dense_matching(img_id_s: int, img_id_t: int, feats_s, norm_s: torch.Tensor, geo_s: torch.Tensor,
-                   norm_t: torch.Tensor, geo_t: torch.Tensor, det_cfg: DetectorConfig, cfg: DenseMatchConfig,
+def dense_matching(img_id_s: int, img_id_t: int, feats_s, frame_s_norm: torch.Tensor, geo_s: torch.Tensor,
+                   frame_t_norm: torch.Tensor, geo_t: torch.Tensor, det_cfg: DetectorConfig, cfg: DenseMatchConfig,
                    raster_s: WorldRaster | None = None, raster_t: WorldRaster | None = None):
     """Match one frame's source keypoints into a target frame by dense world
-    correlation, each frame on its own fitted raster (pass ``raster_s`` /
-    ``raster_t`` to reuse rasters across pairs).  One :func:`qcorr` call.
-    Returns ``(rows_s, rows_t, n_matches)`` in the corres_kps layout."""
+    correlation, each frame on its own fitted raster.  ``frame_s_norm`` /
+    ``frame_t_norm``: the two frames' normalized (uint8) images, read only
+    to build a raster that is not passed in (``raster_s`` / ``raster_t``
+    reuse rasters across pairs).  One :func:`qcorr` call.  Returns
+    ``(rows_s, rows_t, n_matches)`` in the corres_kps layout."""
     res = det_cfg.geopatch_res
     dev = geo_s.device
     xi = torch.clamp(feats_s.xy[:, 0].to(torch.int32), 0, geo_s.shape[1] - 1).to(torch.int64)
     yi = torch.clamp(feats_s.xy[:, 1].to(torch.int32), 0, geo_s.shape[0] - 1).to(torch.int64)
     geo_kp = geo_s[yi, xi]
-    rs = raster_s if raster_s is not None else world_raster(norm_s, geo_s, res)
-    rt = raster_t if raster_t is not None else world_raster(norm_t, geo_t, res)
+    rs = raster_s if raster_s is not None else world_raster(frame_s_norm, geo_s, res)
+    rt = raster_t if raster_t is not None else world_raster(frame_t_norm, geo_t, res)
 
     def origin(r):
         return (torch.tensor([r.x0], dtype=torch.float32, device=dev),

@@ -402,20 +402,22 @@ def _seq_pg_run(mesh: Mesh, poses0, odo_meas, graph: PoseGraph, lam0: float, sta
         cand = se3.where(~ch.fix_rows, se3.retract(p, delta), p)
         new_err = error(cand)
         good = torch.isfinite(new_err) & (new_err < err)
-        return se3.where(good.expand(B), cand, p), torch.where(good, new_err, err), _lm_update(good, lam), cg_k
+        return se3.where(good.expand(B), cand, p), torch.where(good, new_err, err), _lm_update(good, lam), cg_k, g
 
     err0 = error(poses_blk)
     err = err0
     lam = torch.clamp(torch.tensor(lam0, dtype=dtype, device=dev), 1e-9, 1e6)
     stall, k, cg_total = int(stall0), 0, 0
     while k < cfg.max_gn_iters and stall < 2:
-        poses_blk, err2, lam, cg_k = trial(poses_blk, err, lam)
+        poses_blk, err2, lam, cg_k, g = trial(poses_blk, err, lam)
         improved = bool((err - err2) > REL_EXIT_TOL * torch.clamp(err, min=1e-30))
         err, k, cg_total = err2, k + 1, cg_total + cg_k
         stall = 0 if improved else stall + 1
     poses = _unpack(ch.gather_rows(_pack(poses_blk), P_real))
+    # the last trial's gradient norm, summed in rank order: the same bits on every rank
+    g_norm = torch.sqrt(psum_ordered(mesh, torch.sum(g * g))) if k else torch.zeros((), dtype=dtype, device=dev)
     return poses, SolveInfo(error0=err0, error=err, iterations=k, stall=stall, cg_iters_total=cg_total,
-                            solver_kind="sp_" + kind, lam=lam)
+                            solver_kind="sp_" + kind, lam=lam, grad_norm=g_norm)
 
 
 def seq_pose_graph_solve(mesh: Mesh, graph: PoseGraph, cfg: PoseGraphConfig = PoseGraphConfig(), lam0=None,

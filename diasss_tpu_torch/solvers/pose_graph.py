@@ -70,6 +70,9 @@ class SolveInfo(NamedTuple):
     # () float64 graph error where the LM started: ``error0`` unless the
     # coarse-to-fine initialization was adopted
     error_init: Optional[torch.Tensor] = None
+    # () norm of the last trial's gradient ``g`` (float64 for the direct
+    # step, the poses' dtype for PCG); 0 when no trial ran
+    grad_norm: Optional[torch.Tensor] = None
 
 
 def resolve_pg_solver_kind(preconditioner: str, P: int, L_lc: int) -> str:
@@ -567,8 +570,9 @@ def solve_pose_graph(graph: PoseGraph, cfg: PoseGraphConfig = PoseGraphConfig(),
         lam = torch.where(good, lam_acc, lam_rej)
         k += 1
         stall = 0 if bool(improved) else stall + 1
+    gnorm = torch.linalg.norm(g) if k else torch.zeros((), dtype=dtype, device=dev)  # the last trial's
     return poses, SolveInfo(error0=err0, error=err, iterations=k, stall=stall, cg_iters_total=cg_total,
-                            solver_kind=kind, lam=lam, error_init=err_init)
+                            solver_kind=kind, lam=lam, error_init=err_init, grad_norm=gnorm)
 
 
 def pg_pose_marginals(graph: PoseGraph, poses: se3.Pose3) -> torch.Tensor:

@@ -154,6 +154,23 @@ def test_seq_pose_graph_ranks_bit_identical_and_gauge_fixed(world, graph):
         np.testing.assert_array_equal(res[0][f"seq_pg/{kind}_R"][0], R0)
 
 
+def test_seq_pose_graph_grad_norm(world):
+    """``SolveInfo.grad_norm``, summed over ranks in rank order: the same
+    bits on every rank, and after one trial within 1e-4 relative of the
+    one-device solve's (the gradient's sum runs in another order); after
+    the full solve finite and at most the one-trial value."""
+    n, res = world
+    for kind in PG_KINDS:
+        for out in res[1:]:
+            for key in ("grad_norm", "grad_norm_1"):
+                assert out[f"seq_pg/{kind}_{key}"] == res[0][f"seq_pg/{kind}_{key}"], (kind, key)
+        one, single = float(res[0][f"seq_pg/{kind}_grad_norm_1"]), float(res[0][f"seq_pg/{kind}_single_grad_norm_1"])
+        assert one > 0
+        np.testing.assert_allclose(one, single, rtol=1e-4, err_msg=kind)
+        full = float(res[0][f"seq_pg/{kind}_grad_norm"])
+        assert np.isfinite(full) and full <= one, (kind, full, one)
+
+
 @pytest.mark.parametrize("kind", PG_KINDS)
 def test_seq_pose_graph_mesh_size_invariance(pg2, pg4, kind):
     np.testing.assert_allclose(pg4[0][f"seq_pg/{kind}_t"], pg2[0][f"seq_pg/{kind}_t"], rtol=0, atol=2e-3)

@@ -1,9 +1,12 @@
 """The port's public surface against the JAX package's.
 
 Every public name of every ``diasss_tpu`` module (its ``__all__``, else its
-top-level functions and classes and their public methods) has a
-counterpart at the same path in ``diasss_tpu_torch``, apart from the
-exclusions below, each with its reason.  The functions ported last get a
+top-level functions, jitted functions and classes and their public
+methods) has a counterpart at the same path in ``diasss_tpu_torch``, apart
+from the exclusions below, each with its reason.  Module by module, every
+public function, class and method takes the JAX parameter (or field)
+names, keeps the shared ones in the JAX order and has the same defaults,
+apart from :data:`EXCLUDED_PARAMS`.  The functions ported last get a
 parity case against their JAX originals on seeded numpy inputs:
 
 * geometry and factors, float32 on both sides with the same formulas:
@@ -31,7 +34,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity_helpers import jax_and_port_frames, small_survey
+from torch_parity_helpers import jax_and_port_frames, port_cfg, small_survey
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -49,15 +52,31 @@ EXCLUDED_NAMES = {
     "diasss_tpu.parallel.seq.shard_map":
         "JAX's SPMD transform (a version shim): the port runs one process per rank on torch.distributed",
 }
-# ported last: the same parameter names as the JAX originals
-NEW = {
-    "geometry.se3": ["transform_from", "adjoint"],
-    "geometry.sonar": ["bbox_iou_overlap"],
-    "factors.between": ["prior_residual", "point_prior_residual"],
-    "factors.sss_point": ["sss_point_whitened"],
-    "evaluate": ["eval_landmark_consistency", "eval_triangulated_consistency", "trajectory_ate"],
-    "trajectory": ["load_poses_rpy"],
-    "parallel.seq": ["to_host"],
+_PRNG = "a JAX PRNG key: the port draws through ``rng`` (ROADMAP hazard 2)"
+_TUNNEL = "the tunnel upload options: ROADMAP's not-to-port list"
+_MESH = ("the port's Mesh (one process group per mesh) carries the axis and devices, and initialize takes "
+         "(init_method, world_size, rank)")
+# parameters of a JAX callable (the qualified name where it is defined)
+# without a counterpart in the port's, and why
+EXCLUDED_PARAMS = {
+    ("diasss_tpu.solvers.lm.levenberg_marquardt", "rel_tol"):
+        "accepted and never read by the JAX package (its stops are the gradient test and abs_tol, lm.py:120-121): "
+        "porting it would copy a silent ignore",
+    ("diasss_tpu.matching.scc.scc_filter", "key"): _PRNG,
+    ("diasss_tpu.solvers.pose_graph.build_chain_graph", "noise_key"): _PRNG,
+    ("diasss_tpu.solvers.full_ba.build_ba_problem", "noise_key"): _PRNG,
+    **{(f"diasss_tpu.{fn}", arg): _TUNNEL
+       for fn in ("frame.build_keyframe", "frame.build_keyframes_batch", "parallel.prefetch.load_keyframes_pipelined")
+       for arg in ("host_preprocess", "host_imagery")},
+    **{(f"diasss_tpu.parallel.{fn}", arg): _MESH for fn, args in (
+        ("shard.make_mesh", ("axis", "devices")), ("ring.ring_geo_nn_search", ("axis",)),
+        ("alltoall.reshard_rows", ("axis",)),
+        ("distributed.initialize", ("coordinator_address", "num_processes", "process_id")),
+        ("distributed.global_mesh", ("axis",)), ("distributed.heartbeat", ("axis",)),
+        ("recovery.heartbeat_probe", ("devices",)), ("recovery.elastic_seq_pose_graph_solve", ("devices",)),
+        ("seq.seq_pose_graph_solve", ("axis",)), ("seq.seq_full_ba_solve", ("axis",))) for arg in args},
+    ("diasss_tpu.solvers.tridiag.spike_block_tridiag_multi", "axis"): _MESH,
+    ("diasss_tpu.solvers.tridiag.spike_block_tridiag_multi", "n"): _MESH,
 }
 
 
@@ -73,7 +92,9 @@ def _jax_modules():
 def _public_names(mod):
     if hasattr(mod, "__all__"):
         return list(mod.__all__)
-    return [n for n, v in vars(mod).items() if not n.startswith("_") and (inspect.isfunction(v) or inspect.isclass(v))
+    # jitted JAX functions carry their function as ``__wrapped__``
+    return [n for n, v in vars(mod).items() if not n.startswith("_")
+            and (inspect.isfunction(inspect.unwrap(v)) or inspect.isclass(v))
             and getattr(v, "__module__", None) == mod.__name__]
 
 
@@ -107,13 +128,101 @@ def test_every_public_name_has_a_counterpart():
     assert missing == []
 
 
-@pytest.mark.parametrize("path", sorted(NEW))
+_EMPTY = inspect.Parameter.empty
+
+
+def _qualified(obj):
+    obj = inspect.unwrap(obj)
+    return f"{obj.__module__}.{obj.__qualname__}"
+
+
+def _fields(cls):
+    """A record's field names and defaults, in order."""
+    if dataclasses.is_dataclass(cls):
+        return {f.name: f.default if f.default is not dataclasses.MISSING else
+                f.default_factory() if f.default_factory is not dataclasses.MISSING else _EMPTY
+                for f in dataclasses.fields(cls)}
+    return {f: cls._field_defaults.get(f, _EMPTY) for f in cls._fields}
+
+
+def _params(fn):
+    return {k: p.default for k, p in inspect.signature(fn).parameters.items()}
+
+
+def _same_default(theirs, ours):
+    """Numbers, strings, tuples and None by value (and type), config
+    dataclasses through ``port_cfg``, dtypes by name (``jnp.float32`` is
+    ``torch.float32``), arrays element by element, and functions as the
+    port's function of the same name."""
+    if theirs is None or isinstance(theirs, (bool, int, float, str, tuple)):
+        return type(theirs) is type(ours) and theirs == ours
+    if dataclasses.is_dataclass(theirs):
+        return port_cfg(theirs) == ours
+    if isinstance(ours, torch.dtype):
+        return np.dtype(theirs).name == str(ours).removeprefix("torch.")
+    if isinstance(theirs, np.ndarray):
+        return isinstance(ours, np.ndarray) and theirs.dtype == ours.dtype and np.array_equal(theirs, ours)
+    if callable(theirs):
+        return callable(ours) and _qualified(ours) == "diasss_tpu_torch" + _qualified(theirs)[len("diasss_tpu"):]
+    return False
+
+
+def _compare(qual, theirs, ours, ordered, defaults, excluded):
+    """What differs between a JAX callable's parameters (or a record's
+    fields) ``theirs`` and the port's ``ours``; the JAX parameters the port
+    leaves out by :data:`EXCLUDED_PARAMS` go into ``excluded``."""
+    out = []
+    for k in theirs:
+        if (qual, k) in EXCLUDED_PARAMS:
+            excluded.add((qual, k))
+            if k in ours:
+                out.append(f"{qual}: {k} is listed as excluded but exists in the port")
+        elif k not in ours:
+            out.append(f"{qual}: no {k}")
+    shared = [k for k in theirs if k in ours]
+    if ordered and shared != [k for k in ours if k in theirs]:
+        out.append(f"{qual}: order {[k for k in ours if k in theirs]}, JAX {shared}")
+    if defaults:
+        out += [f"{qual}: {k}={ours[k]!r}, JAX {theirs[k]!r}" for k in shared
+                if theirs[k] is not _EMPTY and not _same_default(theirs[k], ours[k])]
+    return out
+
+
+@pytest.mark.parametrize("path", [n[len("diasss_tpu."):] if n != "diasss_tpu" else "__init__"
+                                  for n in sorted(_jax_modules()) if n not in EXCLUDED_MODULES])
 def test_new_names_keep_the_jax_signatures(path):
-    mod = importlib.import_module("diasss_tpu." + path)
-    port = importlib.import_module("diasss_tpu_torch." + path)
-    for name in NEW[path]:
-        assert list(inspect.signature(getattr(port, name)).parameters) == \
-            list(inspect.signature(getattr(mod, name)).parameters), name
+    """Every public function, class and public method of the JAX module has
+    the JAX parameter (or field) names in the port's counterpart, apart
+    from :data:`EXCLUDED_PARAMS`; functions, methods and constructors keep
+    the shared names in the same relative order, so positional callers meet
+    the same arguments, and every shared default equal
+    (:func:`_same_default`).  Result records (named tuples, and dataclasses
+    outside ``config``) are built by keyword in both packages and are
+    checked by field name only; config dataclasses by name and default."""
+    name = "diasss_tpu" if path == "__init__" else "diasss_tpu." + path
+    mod = importlib.import_module(name)
+    port = importlib.import_module("diasss_tpu_torch" + name[len("diasss_tpu"):])
+    problems, excluded = [], set()
+    for attr in _public_names(mod):
+        theirs = getattr(mod, attr)
+        if f"{name}.{attr}" in EXCLUDED_NAMES or not callable(theirs):
+            continue
+        ours = getattr(port, attr)
+        qual = _qualified(theirs)
+        if not inspect.isclass(theirs):
+            problems += _compare(qual, _params(theirs), _params(ours), True, True, excluded)
+            continue
+        if dataclasses.is_dataclass(theirs) or hasattr(theirs, "_fields"):
+            problems += _compare(qual, _fields(theirs), _fields(ours), False,
+                                 theirs.__module__ == "diasss_tpu.config", excluded)
+        else:
+            problems += _compare(qual, _params(theirs), _params(ours), True, True, excluded)
+        for m in _public_methods(theirs):
+            if not isinstance(vars(theirs)[m], property):
+                problems += _compare(f"{qual}.{m}", _params(getattr(theirs, m)), _params(getattr(ours, m)), True,
+                                     True, excluded)
+    stale = {e for e in EXCLUDED_PARAMS if e[0].rsplit(".", 1)[0] == name} - excluded
+    assert problems == [] and stale == set(), (problems, stale)
 
 
 def _poses(seed, n=32, spread=30.0):

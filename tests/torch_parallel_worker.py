@@ -146,15 +146,20 @@ def heartbeat(mesh, inp):
 def seq_pg(mesh, inp):
     from diasss_tpu_torch.config import PoseGraphConfig
     from diasss_tpu_torch.parallel.seq import seq_pose_graph_solve
+    from diasss_tpu_torch.solvers.pose_graph import solve_pose_graph
 
     g = pytree.tree_map(lambda a: a.to(mesh.device), graph_from(inp))
     out = {}
     for kind in str(inp["pg_kinds"]).split(","):
         cfg = PoseGraphConfig(max_gn_iters=int(inp["pg_iters"]), preconditioner=kind)
         poses, info = seq_pose_graph_solve(mesh, g, cfg)
+        one_trial = dataclasses.replace(cfg, max_gn_iters=1)
         out.update({f"{kind}_t": poses.t.cpu().numpy(), f"{kind}_R": poses.R.cpu().numpy(),
                     f"{kind}_error": np.asarray(float(info.error)), f"{kind}_iters": np.asarray(info.iterations),
-                    f"{kind}_cg": np.asarray(info.cg_iters_total), f"{kind}_kind": np.asarray(info.solver_kind)})
+                    f"{kind}_cg": np.asarray(info.cg_iters_total), f"{kind}_kind": np.asarray(info.solver_kind),
+                    f"{kind}_grad_norm": np.asarray(float(info.grad_norm)),
+                    f"{kind}_grad_norm_1": np.asarray(float(seq_pose_graph_solve(mesh, g, one_trial)[1].grad_norm)),
+                    f"{kind}_single_grad_norm_1": np.asarray(float(solve_pose_graph(g, one_trial)[1].grad_norm))})
     return out
 
 

@@ -111,6 +111,19 @@ def crop_lines(survey, crops):
     return dataclasses.replace(survey, lines=lines)
 
 
+def _capture(module, name, infos):
+    """Wrap ``module.name`` so that every call appends its result's last
+    item (the solver info) to ``infos``."""
+    entry = getattr(module, name)
+
+    def wrapped(*args, **kwargs):
+        out = entry(*args, **kwargs)
+        infos.append(out[-1])
+        return out
+
+    setattr(module, name, wrapped)
+
+
 def c13_probe(n_lines_list=(10, 20)):
     """Both packages' two-stage run (``PipelineConfig()``, annotations) on
     the bench's annotation survey at ``n_lines`` lines of 600x512, with the
@@ -125,19 +138,9 @@ def c13_probe(n_lines_list=(10, 20)):
     from diasss_tpu_torch.pipeline import run_slam
     from diasss_tpu_torch.solvers import pose_graph
 
-    def capture(module, name, infos):
-        entry = getattr(module, name)
-
-        def wrapped(*args, **kwargs):
-            out = entry(*args, **kwargs)
-            infos.append(out[-1])
-            return out
-
-        setattr(module, name, wrapped)
-
     jax_infos, port_infos = [], []
-    capture(jpipe, "solve_pose_graph", jax_infos)
-    capture(pose_graph, "solve_pose_graph", port_infos)
+    _capture(jpipe, "solve_pose_graph", jax_infos)
+    _capture(pose_graph, "solve_pose_graph", port_infos)
     cfg = PipelineConfig()
     for n_lines in n_lines_list:
         survey = make_survey(n_lines=n_lines, n_pings=600, n_bins=512, n_landmarks=60)
@@ -211,14 +214,63 @@ def options_probe(n_lines=20):
         print(json.dumps(out), flush=True)
 
 
+# the bench's automatic survey
+AUTO_SURVEY = dict(n_lines=3, n_tie_lines=1, n_pings=400, n_bins=512, n_landmarks=200, drift_xy=0.006, seed=7)
+
+
+def auto_probe():
+    """Both packages' automatic profile (``automatic_config()`` with the
+    direct full-BA step) on the bench's automatic survey, both fed the JAX
+    detector's keypoints, the port drawing through :class:`JaxRng`: per
+    full-BA solve the LM trials, stall count at exit and final error, then
+    the final ATE, the correspondences in the last solve and the seconds of
+    each run; one JSON line."""
+    import json
+    import time
+
+    from diasss_tpu.config import automatic_config
+    from diasss_tpu.features import detect_features as jax_detect
+    from diasss_tpu.pipeline import run_slam as jax_run_slam
+    from diasss_tpu.solvers import full_ba as jfba
+    from diasss_tpu_torch.convert import to_torch
+    from diasss_tpu_torch.pipeline import run_slam
+    from diasss_tpu_torch.solvers import full_ba
+
+    cfg = automatic_config()
+    cfg = dataclasses.replace(cfg, full_ba=dataclasses.replace(cfg.full_ba, preconditioner="direct"))
+    survey = make_survey(**AUTO_SURVEY)
+    gt = [l.gt_poses for l in survey.lines]
+    jf, tf = jax_and_port_frames(survey)
+    feats = [jax_detect(f.norm, f.mask, cfg.detector) for f in jf]
+    infos = {"jax": [], "port": []}
+    _capture(jfba, "solve_full_ba", infos["jax"])
+    _capture(full_ba, "solve_full_ba", infos["port"])
+    out = {"survey": AUTO_SURVEY, "poses": sum(len(g) for g in gt), "trial_cap": cfg.full_ba.max_iters}
+    for label, run in (
+            ("jax", lambda: jax_run_slam(jf, cfg, gt_rows_list=gt, run_eval2=False, feats=feats)),
+            ("port", lambda: run_slam(tf, port_cfg(cfg), gt_rows_list=gt, run_eval2=False,
+                                      feats=[to_torch(f, device="cpu") for f in feats], rng=JaxRng()))):
+        t0 = time.perf_counter()
+        res = run()
+        out[label] = {"solves": [{"trials": int(i.iterations), "stall": int(i.stall), "error": float(i.error)}
+                                 for i in infos[label]],
+                      "ate_dr": res.ate_dr, "ate_est": res.ate_est, "n_lc_accepted": int(res.n_lc_accepted),
+                      "solve_capped": bool(res.solve_capped), "seconds": time.perf_counter() - t0}
+    out["ate_gap_m"] = abs(out["port"]["ate_est"] - out["jax"]["ate_est"])
+    print(json.dumps(out), flush=True)
+
+
 if __name__ == "__main__":
     # python tests/torch_parity_helpers.py [n_lines ...]  (from the repository root, PYTHONPATH=.);
-    # python tests/torch_parity_helpers.py --options [n_lines]: options_probe
+    # python tests/torch_parity_helpers.py --options [n_lines]: options_probe;
+    # python tests/torch_parity_helpers.py --auto: auto_probe
     import sys
 
     jax.config.update("jax_platforms", "cpu")
     torch.set_num_threads(4)
     if sys.argv[1:2] == ["--options"]:
         options_probe(*[int(a) for a in sys.argv[2:3]])
+    elif sys.argv[1:2] == ["--auto"]:
+        auto_probe()
     else:
         c13_probe(tuple(int(a) for a in sys.argv[1:]) or (10, 20))
