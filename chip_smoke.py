@@ -122,7 +122,16 @@ Phases (every one asserts; nothing is caught):
     gap in metres and in marginal sigmas, the float32 and float64 cost at
     each stop) and the full-BA stream with a 3-line window; each with its
     wall beside the one-device wall and each rank's peak memory; and
-    ``multihost_check`` in two OS processes over tcp://.
+    ``multihost_check`` in two OS processes over tcp://;
+16. ``[bench]``: the port's bench (``diasss_tpu_torch.bench.main()``, what
+    ``python -m diasss_tpu_torch.bench`` runs) in this process, its output
+    captured and printed: its last line has exactly the keys of
+    ``bench.py``'s (:data:`BENCH_KEYS`), every ``value*`` is positive, every
+    ``ate_*`` finite, and ``ate_3k``, ``ate_12k``, ``ate_full_ba`` and
+    ``ate_auto`` are within 1e-3 m (automatic 0.02 m) of this run's own
+    ATE of the cell; ``solver_3k`` and ``solver_12k`` read ``direct``; B1
+    and B2 launch three times the automatic pass's count (its warm-up and
+    two timed passes).
 
 The repairs of this round are gated here too: the 12000-pose two-stage
 solve is not capped (its float64 direct step), two automatic passes give
@@ -184,6 +193,19 @@ MIXED_AUTO_CROPS = {1: 64}
 MIXED_ANNO_CROPS = {1: 32, 3: 64}
 MIXED_BA_CROPS = {1: 64}
 CLI_ATE_TOL = 1e-3  # the CLI's metrics against an in-process run on the same files
+# the keys of the last line of the repository's bench.py (bench.py:336-374), which the port's
+# bench (diasss_tpu_torch/bench.py) prints too; the smoke test may not import bench.py
+BENCH_KEYS = frozenset((
+    "metric", "value", "unit", "vs_baseline", "baseline_proxy_pings_per_sec", "wall_samples_3k",
+    "timings_sum_frac_3k", "ate_3k", "ate_dr_3k", "value_12k_poses", "vs_baseline_12k", "baseline_proxy_12k",
+    "wall_samples_12k", "timings_sum_frac_12k", "ate_12k", "ate_dr_12k", "value_full_ba", "vs_baseline_full_ba",
+    "ate_full_ba", "ate_dr_full_ba", "value_auto", "vs_baseline_auto", "baseline_proxy_auto",
+    "baseline_auto_matches", "ate_auto", "ate_dr_auto", "solver_3k", "solver_12k", "solver_full_ba", "solver_auto",
+    "timings_auto"))
+# each bench ATE against this run's own ATE of the same cell (smoke refs key, m)
+BENCH_ATE_GATES = {"ate_3k": ("anno3k", 1e-3), "ate_12k": ("anno12k", 1e-3), "ate_full_ba": ("ba4k", 1e-3),
+                   "ate_auto": ("auto", 0.02)}
+BENCH_AUTO_PASSES = 3  # the bench's automatic point: one warm-up and two timed passes
 
 
 def check(ok: bool, msg: str) -> None:
@@ -271,12 +293,6 @@ def crop_lines(survey, crops):
         lines.append(dataclasses.replace(l, image=l.image[:, c:n - c], ground_ranges=l.ground_ranges[:n // 2 - c],
                                          annos=cut(l.annos)))
     return dataclasses.replace(survey, lines=lines)
-
-
-def card_line() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
 
 
 def cuda_time_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -1983,11 +1999,55 @@ def mesh_phases(dev, card, refs):
     return launches
 
 
+def bench_phase(card, refs, per_pass):
+    """``diasss_tpu_torch.bench.main()`` in this process, its standard output
+    and error captured: its last line has exactly ``bench.py``'s keys, every
+    rate is positive, every ATE finite and within :data:`BENCH_ATE_GATES` of
+    this run's own ATE of the cell, and the two-stage points solved with the
+    direct step.  ``per_pass``: the (B1, B2) launches of one automatic pass
+    in this run; the bench's automatic point launches them in each of its
+    passes.  Returns the bench's (B1, B2) launches."""
+    import io
+
+    from diasss_tpu_torch import bench
+    from diasss_tpu_torch.features import fast_cuda
+    from diasss_tpu_torch.matching import dense_cuda
+
+    out, err = io.StringIO(), io.StringIO()
+    fast_cuda.launches = dense_cuda.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        bench.main()
+    seconds = time.perf_counter() - t0
+    launches = fast_cuda.launches, dense_cuda.launches
+    for line in err.getvalue().splitlines():
+        print(f"[bench] {line}")
+    last = out.getvalue().strip().splitlines()[-1]
+    print(f"[bench] {last}")
+    got = json.loads(last)
+    print(f"[bench] python -m diasss_tpu_torch.bench in process: {seconds:.1f} s; B1 launches {launches[0]}, "
+          f"B2 launches {launches[1]} on {card}")
+    check(set(got) == BENCH_KEYS, f"[bench] keys {sorted(set(got) ^ BENCH_KEYS)} differ from bench.py's")
+    rates = {k: v for k, v in got.items() if k.startswith("value")}
+    check(len(rates) == 4 and all(v is not None and v > 0 for v in rates.values()), f"[bench] rates {rates}")
+    ates = {k: v for k, v in got.items() if k.startswith("ate_")}
+    check(len(ates) == 8 and all(v is not None and math.isfinite(v) for v in ates.values()), f"[bench] ATEs {ates}")
+    for key, (ref, tol) in BENCH_ATE_GATES.items():
+        print(f"[bench] {key} {got[key]} m against this run's {ref} {refs[ref]:.4f} m (gate {tol:g} m)")
+        check(abs(got[key] - refs[ref]) <= tol, f"[bench] {key} {got[key]} against {ref} {refs[ref]}")
+    check(got["solver_3k"] == got["solver_12k"] == "direct",
+          f"[bench] solvers {got['solver_3k']!r}, {got['solver_12k']!r}")
+    check(launches == tuple(BENCH_AUTO_PASSES * n for n in per_pass),
+          f"[bench] launches {launches}, {BENCH_AUTO_PASSES} automatic passes of {per_pass}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
     import diasss_tpu_torch  # noqa: F401  (fails outside the repository)
+    from diasss_tpu_torch.bench import card_line
     from diasss_tpu_torch.config import FullBAConfig, PipelineConfig, PoseGraphConfig, automatic_config
     from diasss_tpu_torch.solvers import full_ba, pose_graph
     from diasss_tpu_torch.synthetic import make_survey
@@ -2035,9 +2095,11 @@ def main() -> int:
     def ba(**kw):
         return PipelineConfig(min_overlap=0.1, estimator="full_ba", full_ba=FullBAConfig(**kw))
 
-    annotation_phase(dev, card, {**SURVEY, "n_lines": 5}, PipelineConfig(), "anno",
-                     variants=[("anno dense_seg", pg(preconditioner="dense_seg")),
-                               ("anno tridiag", pg(preconditioner="tridiag"))])
+    _, result3k = annotation_phase(dev, card, {**SURVEY, "n_lines": 5}, PipelineConfig(), "anno",
+                                   variants=[("anno dense_seg", pg(preconditioner="dense_seg")),
+                                             ("anno tridiag", pg(preconditioner="tridiag"))])
+    refs["anno3k"] = result3k.ate_est
+    del result3k
     with captured(pose_graph, "solve_pose_graph") as pg_calls:
         survey12k, result12k = annotation_phase(dev, card, {**SURVEY, "n_lines": 20}, PipelineConfig(), "anno",
                                                 variants=[("anno marginals", pg(marginals=True))])
@@ -2081,6 +2143,7 @@ def main() -> int:
     annotation_phase(dev, card, BA_SURVEY, ba(), "mixed full_ba anno", crops=MIXED_BA_CROPS)
     cli_phase(dev, card, SURVEY, MIXED_ANNO_CROPS)
     fast_mesh, qcorr_mesh, fast_mesh_detected = mesh_phases(dev, card, refs)
+    fast_bench, qcorr_bench = bench_phase(card, refs, (fast_auto, qcorr_auto))
 
     print(json.dumps({"kernels": [
         {
@@ -2092,7 +2155,8 @@ def main() -> int:
             "launches_by_phase": {"auto": fast_auto, "auto_marginals": fast_marg, "detected": fast_detected,
                                   "detected_stacked": fast_stacked, "online_auto": fast_online, "detected_orb": fast_orb,
                                   "detected_geo_patch": fast_geo_patch, "mixed_auto": fast_mixed,
-                                  "online_mixed_auto": fast_mixed_online, **fast_mesh, **fast_mesh_detected},
+                                  "online_mixed_auto": fast_mixed_online, **fast_mesh, **fast_mesh_detected,
+                                  "bench": fast_bench},
             "max_abs_err": max(fast_err, b1_mixed_err, b1_stacked_err),
             "ms": fast_ms,
             "device_ms": fast_dev_ms,
@@ -2109,7 +2173,8 @@ def main() -> int:
             "replaces": "diasss_tpu/matching/dense_pallas.py:32",
             "launches": qcorr_online,
             "launches_by_phase": {"auto": qcorr_auto, "auto_marginals": qcorr_marg, "online_auto": qcorr_online,
-                                  "mixed_auto": qcorr_mixed, "online_mixed_auto": qcorr_mixed_online, **qcorr_mesh},
+                                  "mixed_auto": qcorr_mixed, "online_mixed_auto": qcorr_mixed_online, **qcorr_mesh,
+                                  "bench": qcorr_bench},
             "max_abs_err": max(q_err, b2_mixed_err),
             "ms": q_ms,
             "device_ms": q_dev_ms,

@@ -7,6 +7,8 @@ Counterpart of :mod:`diasss_tpu.frame` (device path only):
   ``max_pool2d`` of the bright map as float)
 * geo-referencing via :func:`.geometry.sonar.geo_image`
 * :func:`normalize_columns` — the column-wise normalizer of the mosaic
+* :func:`_normalize_sss_np` — :func:`normalize_sss` in numpy, for the
+  bench's CPU proxy of the reference (:mod:`.bench`)
 """
 
 from __future__ import annotations
@@ -46,6 +48,20 @@ def normalize_sss(raw: torch.Tensor, cfg: NormalizeConfig = NormalizeConfig()) -
     max_used = flat.mean(-1)[..., None, None] * cfg.mean_factor
     out = torch.clamp((raw - mn) / (max_used - mn) * 255.0, 0.0, 255.0)
     return torch.round(out).to(torch.uint8)
+
+
+def _normalize_sss_np(raws: np.ndarray, cfg: NormalizeConfig) -> np.ndarray:
+    """Host (numpy) mirror of :func:`normalize_sss` over a stacked (F, N, M)
+    batch, the bench's reference proxy's normalization: the JAX package's
+    ``_normalize_sss_np`` operation for operation (float32, ``np.round``
+    half-to-even), so equal to it bit for bit."""
+    raws = raws.astype(np.float32)
+    flat = raws.reshape(raws.shape[0], -1)
+    mn = flat.min(axis=1)[:, None, None]
+    max_used = flat.mean(axis=1, dtype=np.float32)[:, None, None] * cfg.mean_factor
+    out = (raws - mn) / (max_used - mn) * 255.0
+    np.clip(out, 0.0, 255.0, out=out)
+    return np.round(out).astype(np.uint8)
 
 
 def normalize_columns(raw: torch.Tensor) -> torch.Tensor:

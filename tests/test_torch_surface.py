@@ -18,7 +18,8 @@ parity case against their JAX originals on seeded numpy inputs:
   1e-3 m and its shares to one row (as ``test_torch_mixed.py``);
 * ATE 1e-5 m; the trajectory loader and ``SlamResult.frame_poses`` exact.
 
-Where CUDA is absent, the multi-device layer's device defaults raise.
+Where CUDA is absent, the multi-device layer's device defaults raise.  The
+port's bench point keeps the parameters of the repository's ``bench.run``.
 """
 
 import dataclasses
@@ -223,6 +224,19 @@ def test_new_names_keep_the_jax_signatures(path):
                                      True, excluded)
     stale = {e for e in EXCLUDED_PARAMS if e[0].rsplit(".", 1)[0] == name} - excluded
     assert problems == [] and stale == set(), (problems, stale)
+
+
+def test_bench_run_keeps_the_jax_signature():
+    """The port's bench point (``diasss_tpu_torch.bench.run``) takes every
+    parameter of the repository's ``bench.run`` in the same order with equal
+    defaults; ``device`` (the card unless given), last, is its only
+    addition."""
+    import bench
+    from diasss_tpu_torch import bench as port_bench
+
+    theirs, ours = _params(bench.run), _params(port_bench.run)
+    assert _compare("bench.run", theirs, ours, True, True, set()) == []
+    assert list(ours) == list(theirs) + ["device"] and ours["device"] is None
 
 
 def _poses(seed, n=32, spread=30.0):
