@@ -191,15 +191,24 @@ def qcorr_plain(Wvh: torch.Tensor, Wh: torch.Tensor, q: torch.Tensor, k: int, T:
     return A, B
 
 
+CPU_QCORR_ROWS = 1024  # keypoints per plain call on the CPU: each block's maps stay in cache
+
+
 def qcorr(Wvh: torch.Tensor, Wh: torch.Tensor, q: torch.Tensor, k: int, T: int):
-    """:func:`qcorr_plain` for CPU tensors; the CUDA kernel of
-    :mod:`.dense_cuda` (which raises on anything it does not take) for CUDA
-    tensors."""
+    """:func:`qcorr_plain` for CPU tensors, over blocks of
+    :data:`CPU_QCORR_ROWS` keypoints (rows are independent: the same maps
+    bit for bit, several times faster than one call at tens of thousands of
+    rows); the CUDA kernel of :mod:`.dense_cuda` (which raises on anything
+    it does not take) for CUDA tensors."""
     from . import dense_cuda
 
     if Wvh.device.type == "cpu":
         dense_cuda.check_inputs(Wvh, Wh, q, k, T)
-        return qcorr_plain(Wvh, Wh, q, k, T)
+        blocks = [qcorr_plain(Wvh[r:r + CPU_QCORR_ROWS], Wh[r:r + CPU_QCORR_ROWS], q[r:r + CPU_QCORR_ROWS], k, T)
+                  for r in range(0, Wvh.shape[0], CPU_QCORR_ROWS)]
+        if len(blocks) == 1:
+            return blocks[0]
+        return torch.cat([a for a, _ in blocks]), torch.cat([b for _, b in blocks])
     return dense_cuda.qcorr_cuda(Wvh, Wh, q, k, T)
 
 

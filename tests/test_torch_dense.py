@@ -136,6 +136,21 @@ def test_qcorr_plain_matches_pallas_interpret():
     np.testing.assert_allclose(B0.numpy(), np.asarray(B1), atol=2e-5)
 
 
+def test_qcorr_on_the_cpu_equals_one_plain_call_bit_for_bit(monkeypatch):
+    """The CPU branch of ``qcorr`` runs the plain version over blocks of
+    keypoints (rows are independent): the same maps as one call."""
+    K, k, T = 23, 5, 9
+    S = T + k - 1
+    rng = np.random.default_rng(5)
+    Wh = _T((rng.uniform(size=(K, S, S)) > 0.1).astype(np.float32))
+    Wvh = _T(rng.uniform(0, 1, (K, S, S)).astype(np.float32)) * Wh
+    q = _T(rng.normal(0, 1, (K, k * k)).astype(np.float32))
+    A0, B0 = dense.qcorr_plain(Wvh, Wh, q, k, T)
+    monkeypatch.setattr(dense, "CPU_QCORR_ROWS", 7)
+    A, B = dense.qcorr(Wvh, Wh, q, k, T)
+    assert torch.equal(A, A0) and torch.equal(B, B0)
+
+
 def test_qcorr_plain_within_1e5_of_the_float64_sum():
     """Why the card's kernel is held to 2e-5 of ``qcorr_plain``: both sum the
     same 289 terms |q_g W_g| <= 1 in float32 (the kernel with fused

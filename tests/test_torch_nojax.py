@@ -3,7 +3,7 @@ detected and automatic paths with the pose marginals and the mosaic, one
 online arrival, a checkpointed solve and the diagnostics, the automatic
 path and an online arrival on lines of different bin counts, the native
 reader and the pipelined loader, the CLI with ``--trace``, the match
-rendering, the bench module, and the multi-device layer on a one-rank gloo
+rendering, the bench module, the mission scripts, and the multi-device layer on a one-rank gloo
 group), and the chip smoke test has no CPU path.
 
 Both run in fresh interpreters: this test process has imported jax already
@@ -25,6 +25,7 @@ import torch
 import diasss_tpu_torch.bench, diasss_tpu_torch.cli, diasss_tpu_torch.convert, diasss_tpu_torch.dumps
 import diasss_tpu_torch.io
 import diasss_tpu_torch.features.fast_cuda, diasss_tpu_torch.matching.dense_cuda
+import diasss_tpu_torch.scripts.auto_scale, diasss_tpu_torch.scripts.stress_bench
 from diasss_tpu_torch.config import DetectorConfig, PipelineConfig, PoseGraphConfig, automatic_config
 from diasss_tpu_torch.synthetic import make_survey
 from diasss_tpu_torch.frame import build_keyframes_batch

@@ -162,6 +162,37 @@ def c13_probe(n_lines_list=(10, 20)):
         print(json.dumps(out), flush=True)
 
 
+def stress_probe(n_lines_list=(10, 20, 30)):
+    """Both packages' two-stage run (``PipelineConfig()``, annotations) on
+    the stress survey's lines (600 pings x 512 bins, 600 landmarks; the
+    survey of ``diasss_tpu_torch.scripts.stress_bench``, 50 lines on the
+    card) cut to ``n_lines``, with the same initial noise, on the CPU:
+    pairs, accepted loop closures, ATE DR and EST, whether the solve hit
+    its trial cap; one JSON line per survey."""
+    import json
+    import time
+
+    import diasss_tpu.pipeline as jpipe
+    from diasss_tpu.config import PipelineConfig
+    from diasss_tpu_torch.pipeline import run_slam
+
+    cfg = PipelineConfig()
+    for n_lines in n_lines_list:
+        survey = make_survey(n_lines=n_lines, n_pings=600, n_bins=512, n_landmarks=600)
+        gt = [l.gt_poses for l in survey.lines]
+        jf, tf = jax_and_port_frames(survey)
+        out = {"poses": sum(len(g) for g in gt)}
+        for label, run in (
+                ("jax", lambda: jpipe.run_slam(jf, cfg, gt_rows_list=gt, run_eval2=False)),
+                ("port", lambda: run_slam(tf, port_cfg(cfg), gt_rows_list=gt, run_eval2=False, rng=JaxRng()))):
+            t0 = time.perf_counter()
+            res = run()
+            out[label] = {"pairs": len(res.pair_ids), "n_lc_accepted": int(res.n_lc_accepted), "ate_dr": res.ate_dr,
+                          "ate_est": res.ate_est, "solve_capped": bool(res.solve_capped),
+                          "seconds": time.perf_counter() - t0}
+        print(json.dumps(out), flush=True)
+
+
 def options_probe(n_lines=20):
     """The pose graph of both packages' two-stage run (as :func:`c13_probe`
     builds it) solved again by each package with the direct step: plain,
@@ -263,7 +294,8 @@ def auto_probe():
 if __name__ == "__main__":
     # python tests/torch_parity_helpers.py [n_lines ...]  (from the repository root, PYTHONPATH=.);
     # python tests/torch_parity_helpers.py --options [n_lines]: options_probe;
-    # python tests/torch_parity_helpers.py --auto: auto_probe
+    # python tests/torch_parity_helpers.py --auto: auto_probe;
+    # python tests/torch_parity_helpers.py --stress [n_lines ...]: stress_probe
     import sys
 
     jax.config.update("jax_platforms", "cpu")
@@ -272,5 +304,7 @@ if __name__ == "__main__":
         options_probe(*[int(a) for a in sys.argv[2:3]])
     elif sys.argv[1:2] == ["--auto"]:
         auto_probe()
+    elif sys.argv[1:2] == ["--stress"]:
+        stress_probe(tuple(int(a) for a in sys.argv[2:]) or (10, 20, 30))
     else:
         c13_probe(tuple(int(a) for a in sys.argv[1:]) or (10, 20))
