@@ -14,7 +14,9 @@ line k+1 is parsed on a host thread (by the native C++ reader when it
 builds, else the Python parser; the CLI prints which) while line k is built
 and, for ``--detected`` and ``--auto``, detected on the device.  ``--trace
 DIR`` writes a ``torch.profiler`` Chrome trace of the solve (CPU and, on
-the card, CUDA activity) to ``DIR/trace.json``.
+the card, CUDA activity) to ``DIR/trace.json``; the solve runs inside
+:func:`.trace.recording`, so the trace carries the program's spans
+(``run_slam``, its stages, the solvers' iterations and trials).
 
 ``--auto`` runs the automatic profile (dense world-correlation matching,
 joint full BA, drift-compensated re-matching); ``--estimator full_ba`` runs
@@ -252,13 +254,15 @@ def _run(args, parser, device) -> int:
 
 def _traced(trace_dir: str, device, run):
     """``run()`` under ``torch.profiler`` with CPU activity and, on the card,
-    CUDA activity; the Chrome trace goes to ``trace_dir/trace.json``."""
+    CUDA activity, and inside :func:`.trace.recording`, so the program's
+    spans are in it; the Chrome trace goes to ``trace_dir/trace.json``."""
     from torch.profiler import ProfilerActivity, profile
 
     from .pipeline import _sync
+    from .trace import recording
 
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
-    with profile(activities=activities) as prof:
+    with profile(activities=activities) as prof, recording():
         result = run()
         _sync(device)
     os.makedirs(trace_dir, exist_ok=True)

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from . import trace
 from .config import MaskConfig, NormalizeConfig
 
 from .geometry import sonar
@@ -116,27 +117,28 @@ def build_keyframes_batch(
     mixed shapes fall back to per-frame builds.  The raw image, poses,
     altitudes, ground ranges and geo are in ``dtype``; normalization and
     the mask work in float32 whatever it is, as the JAX package's do."""
-    shapes = {(np.shape(it[1]), np.shape(it[2]), np.shape(it[3])) for it in items}
-    if len(shapes) != 1:
-        return [build_keyframe(*it, norm_cfg=norm_cfg, mask_cfg=mask_cfg, dtype=dtype, device=device)
-                for it in items]
+    with trace.span("frame.build_keyframes"):
+        shapes = {(np.shape(it[1]), np.shape(it[2]), np.shape(it[3])) for it in items}
+        if len(shapes) != 1:
+            return [build_keyframe(*it, norm_cfg=norm_cfg, mask_cfg=mask_cfg, dtype=dtype, device=device)
+                    for it in items]
 
-    def up(k):
-        return torch.as_tensor(np.stack([it[k] for it in items]), dtype=dtype, device=device)
+        def up(k):
+            return torch.as_tensor(np.stack([it[k] for it in items]), dtype=dtype, device=device)
 
-    raws, poses, alts, grs = up(1), up(2), up(3), up(4)
-    norms = normalize_sss(raws, norm_cfg)
-    masks = filtered_mask(raws, mask_cfg)
-    geos = sonar.geo_image(poses[..., 3:5], poses[..., 2], grs, raws.shape[-1])
-    out = []
-    for k, it in enumerate(items):
-        annos = it[5] if len(it) > 5 else None
-        out.append(Keyframe(
-            img_id=it[0], raw=raws[k], norm=norms[k], mask=masks[k], geo=geos[k],
-            dr_poses=poses[k], altitudes=alts[k], ground_ranges=grs[k],
-            annos=np.zeros((0, 7), np.int64) if annos is None else np.asarray(annos),
-        ))
-    return out
+        raws, poses, alts, grs = up(1), up(2), up(3), up(4)
+        norms = normalize_sss(raws, norm_cfg)
+        masks = filtered_mask(raws, mask_cfg)
+        geos = sonar.geo_image(poses[..., 3:5], poses[..., 2], grs, raws.shape[-1])
+        out = []
+        for k, it in enumerate(items):
+            annos = it[5] if len(it) > 5 else None
+            out.append(Keyframe(
+                img_id=it[0], raw=raws[k], norm=norms[k], mask=masks[k], geo=geos[k],
+                dr_poses=poses[k], altitudes=alts[k], ground_ranges=grs[k],
+                annos=np.zeros((0, 7), np.int64) if annos is None else np.asarray(annos),
+            ))
+        return out
 
 
 def build_keyframe(

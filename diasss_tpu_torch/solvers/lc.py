@@ -16,6 +16,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import trace
 from ..config import KeypointNoiseConfig, LoopClosureConfig
 
 from ..factors.between import between_residual
@@ -109,10 +110,11 @@ def _solve_batch(pair, row_s, row_t, g_s, g_t, alt_s, alt_t, gras_t, n_bins,
     z_bar = 0.5 * ((row_s[:, 5] - alt_s) + (row_t[:, 5] - alt_t))
     L0 = torch.stack([0.5 * (g_s[:, 0] + g_t[:, 0]), 0.5 * (g_s[:, 1] + g_t[:, 1]), z_bar], dim=-1)
 
-    res = levenberg_marquardt(
-        _lc_residual, _retract, LCState(X2=Tp_t, L=L0),
-        (Tp_s, Ts, Tp_st, sig_odo, sig_kp1, sig_kp2, m1, m2), 9, max_iters=cfg.max_lm_iters,
-    )
+    with trace.span("lc.mini_solve"):
+        res = levenberg_marquardt(
+            _lc_residual, _retract, LCState(X2=Tp_t, L=L0),
+            (Tp_s, Ts, Tp_st, sig_odo, sig_kp1, sig_kp2, m1, m2), 9, max_iters=cfg.max_lm_iters,
+        )
     X2_est, L_est = res.x.X2, res.x.L
     var6 = torch.diagonal(marginal_covariance(res.hessian, slice(0, 6)), dim1=-2, dim2=-1)
 

@@ -19,7 +19,8 @@ promotes the tangent of a 0-dim tensor times a Python float to float64.
 The loop is the same fixed-trip masked loop (GTSAM defaults: lambda 1e-5,
 factor 10, cap 1e5; freeze on lambda stall): a Python loop whose
 accept/reject decisions stay on the device in ``torch.where``, with no host
-synchronisation.
+synchronisation.  Each trip is a ``lm.iteration`` span (:mod:`..trace`)
+holding ``lm.linearize`` and ``lm.step``.
 """
 
 from __future__ import annotations
@@ -29,6 +30,8 @@ from typing import Callable, NamedTuple
 import torch
 from torch.func import jvp, vmap
 from torch.utils import _pytree as pytree
+
+from .. import trace
 
 
 class LMResult(NamedTuple):
@@ -102,22 +105,26 @@ def levenberg_marquardt(
     done = torch.zeros(B, dtype=torch.bool, device=dev)
     iters = torch.zeros(B, dtype=torch.int32, device=dev)
     for _ in range(max_iters):
-        r, J = linearize(residual_fn, retract_fn, x, args, n_dim)
-        Jt = J.transpose(-1, -2)
-        A = Jt @ J + lam[:, None, None] * eye
-        delta = cholesky_solve_or_nan(A, -(Jt @ r[..., None])[..., 0])
-        x_new = retract_fn(x, delta)
-        err_new = error_of(x_new)
-        good = torch.isfinite(err_new) & (err_new < err)
-        upd = good & ~done
-        x = tree_where(upd, x_new, x)
-        err = torch.where(upd, err_new, err)
-        lam_up = torch.clamp(lam * lambda_factor, max=lambda_max)
-        lam = torch.where(done, lam, torch.where(good, lam / lambda_factor, lam_up))
-        done = done | (~good & (lam >= lambda_max))
-        iters = iters + torch.where(done, 0, 1).to(torch.int32)
+        with trace.span("lm.iteration"):
+            with trace.span("lm.linearize"):
+                r, J = linearize(residual_fn, retract_fn, x, args, n_dim)
+            with trace.span("lm.step"):
+                Jt = J.transpose(-1, -2)
+                A = Jt @ J + lam[:, None, None] * eye
+                delta = cholesky_solve_or_nan(A, -(Jt @ r[..., None])[..., 0])
+                x_new = retract_fn(x, delta)
+                err_new = error_of(x_new)
+                good = torch.isfinite(err_new) & (err_new < err)
+                upd = good & ~done
+                x = tree_where(upd, x_new, x)
+                err = torch.where(upd, err_new, err)
+                lam_up = torch.clamp(lam * lambda_factor, max=lambda_max)
+                lam = torch.where(done, lam, torch.where(good, lam / lambda_factor, lam_up))
+                done = done | (~good & (lam >= lambda_max))
+                iters = iters + torch.where(done, 0, 1).to(torch.int32)
 
-    r, J = linearize(residual_fn, retract_fn, x, args, n_dim)
+    with trace.span("lm.linearize"):
+        r, J = linearize(residual_fn, retract_fn, x, args, n_dim)
     Jt = J.transpose(-1, -2)
     H = Jt @ J
     grad_norm = torch.linalg.norm((Jt @ r[..., None])[..., 0], dim=-1)

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 from torch.func import jvp, vmap
 
+from .. import trace
 from ..config import PoseGraphConfig
 
 from ..factors.between import between_residual
@@ -521,56 +522,71 @@ def solve_pose_graph(graph: PoseGraph, cfg: PoseGraphConfig = PoseGraphConfig(),
     fresh solves only; a warm-started caller passes
     ``allow_coarse_init=False``.  ``SolveInfo.error0`` stays the error of
     ``graph.poses0``; ``SolveInfo.error_init`` is the error the LM started
-    from."""
-    P = graph.poses0.t.shape[0]
-    L_lc = graph.lc_i.shape[0]
-    kind = resolve_pg_solver_kind(cfg.preconditioner, P, L_lc)
-    dtype, dev = graph.poses0.t.dtype, graph.poses0.t.device
-    rel_exit_tol = 1e-6
-    not_gauge = torch.arange(P, device=dev) != 0
-    segs = factor_segments(graph, P)
-    factors = torch.tensor(tuple(cfg.lam_sweep_factors), dtype=dtype, device=dev)
-    decay = 0.3 if factors.numel() == 1 else 1.0
-    up = max(max(cfg.lam_sweep_factors), 10.0)
+    from.
 
-    err0 = terms.error(graph.poses0, graph)
-    poses, err = graph.poses0, err0
-    stride = int(cfg.coarse_init_stride or 0)
-    if allow_coarse_init and stride > 1 and lam0 is None and stall0 is None and P > 4 * stride:
-        poses, err = _coarse_init(graph, cfg, err0, stride, terms)
-    err_init = err
-    lam = torch.tensor(1e-4 if lam0 is None else float(lam0), dtype=dtype, device=dev)
-    stall = 0 if stall0 is None else int(stall0)
-    k = cg_total = 0
-    while k < cfg.max_gn_iters and stall < 2:
-        idx_i, idx_j, r, Ji, Jj = terms.normal_terms(poses, graph)
-        lam = torch.clamp(lam, 1e-9, 1e6)
-        if kind == "direct":
-            g, D = _gradient_and_diag(segs, r.double(), Ji.double(), Jj.double())
-            lams = torch.clamp(lam * factors, 1e-9, 1e6)
-            deltas = _direct_lm_step_multi(graph, Ji, Jj, g, D, lams, P, L_lc)
-            cands = [se3.where(not_gauge, se3.retract(poses, d), poses) for d in deltas]
-            errs = torch.stack([terms.error(c, graph) for c in cands])
-            errs = torch.where(torch.isfinite(errs), errs, torch.full_like(errs, float("inf")))
-            best = torch.argmin(errs)
-            cand, new_err = se3.Pose3(torch.stack([c.R for c in cands])[best],
-                                      torch.stack([c.t for c in cands])[best]), errs[best]
-            lam_acc, lam_rej = torch.clamp(lams[best] * decay, min=1e-9), torch.clamp(lam * up, max=1e6)
-        else:
-            g, D = _gradient_and_diag(segs, r, Ji, Jj)
-            delta, cg_k = _pcg_lm_step(kind, idx_i, idx_j, segs, Ji, Jj, g, D, lam, P, cfg)
-            cg_total += cg_k
-            cand = se3.where(not_gauge, se3.retract(poses, delta), poses)
-            new_err = terms.error(cand, graph)
-            lam_acc, lam_rej = torch.clamp(lam * 0.3, min=1e-9), torch.clamp(lam * 10.0, max=1e6)
-        good = torch.isfinite(new_err) & (new_err < err)
-        poses = se3.where(good.expand(P), cand, poses)
-        improved = (err - torch.where(good, new_err, err)) > rel_exit_tol * torch.clamp(err, min=1e-30)
-        err = torch.where(good, new_err, err)
-        lam = torch.where(good, lam_acc, lam_rej)
-        k += 1
-        stall = 0 if bool(improved) else stall + 1
-    gnorm = torch.linalg.norm(g) if k else torch.zeros((), dtype=dtype, device=dev)  # the last trial's
+    Spans (:mod:`..trace`): the solve is ``pose_graph.solve`` (attributes
+    ``kind``, ``trials``, ``cg_iters``, ``stall``), each trial a
+    ``pose_graph.trial`` of ``pose_graph.linearize`` (normal terms and
+    gradient), ``pose_graph.step`` (the step, the candidates' errors and
+    the accept) and ``pose_graph.read``, the host's wait at the stall read."""
+    with trace.span("pose_graph.solve") as solve:
+        P = graph.poses0.t.shape[0]
+        L_lc = graph.lc_i.shape[0]
+        kind = resolve_pg_solver_kind(cfg.preconditioner, P, L_lc)
+        dtype, dev = graph.poses0.t.dtype, graph.poses0.t.device
+        rel_exit_tol = 1e-6
+        not_gauge = torch.arange(P, device=dev) != 0
+        segs = factor_segments(graph, P)
+        factors = torch.tensor(tuple(cfg.lam_sweep_factors), dtype=dtype, device=dev)
+        decay = 0.3 if factors.numel() == 1 else 1.0
+        up = max(max(cfg.lam_sweep_factors), 10.0)
+
+        err0 = terms.error(graph.poses0, graph)
+        poses, err = graph.poses0, err0
+        stride = int(cfg.coarse_init_stride or 0)
+        if allow_coarse_init and stride > 1 and lam0 is None and stall0 is None and P > 4 * stride:
+            poses, err = _coarse_init(graph, cfg, err0, stride, terms)
+        err_init = err
+        lam = torch.tensor(1e-4 if lam0 is None else float(lam0), dtype=dtype, device=dev)
+        stall = 0 if stall0 is None else int(stall0)
+        k = cg_total = 0
+        while k < cfg.max_gn_iters and stall < 2:
+            with trace.span("pose_graph.trial"):
+                with trace.span("pose_graph.linearize"):
+                    idx_i, idx_j, r, Ji, Jj = terms.normal_terms(poses, graph)
+                    lam = torch.clamp(lam, 1e-9, 1e6)
+                    if kind == "direct":
+                        g, D = _gradient_and_diag(segs, r.double(), Ji.double(), Jj.double())
+                    else:
+                        g, D = _gradient_and_diag(segs, r, Ji, Jj)
+                with trace.span("pose_graph.step"):
+                    if kind == "direct":
+                        lams = torch.clamp(lam * factors, 1e-9, 1e6)
+                        deltas = _direct_lm_step_multi(graph, Ji, Jj, g, D, lams, P, L_lc)
+                        cands = [se3.where(not_gauge, se3.retract(poses, d), poses) for d in deltas]
+                        errs = torch.stack([terms.error(c, graph) for c in cands])
+                        errs = torch.where(torch.isfinite(errs), errs, torch.full_like(errs, float("inf")))
+                        best = torch.argmin(errs)
+                        cand, new_err = se3.Pose3(torch.stack([c.R for c in cands])[best],
+                                                  torch.stack([c.t for c in cands])[best]), errs[best]
+                        lam_acc, lam_rej = torch.clamp(lams[best] * decay, min=1e-9), torch.clamp(lam * up, max=1e6)
+                    else:
+                        delta, cg_k = _pcg_lm_step(kind, idx_i, idx_j, segs, Ji, Jj, g, D, lam, P, cfg)
+                        cg_total += cg_k
+                        cand = se3.where(not_gauge, se3.retract(poses, delta), poses)
+                        new_err = terms.error(cand, graph)
+                        lam_acc, lam_rej = torch.clamp(lam * 0.3, min=1e-9), torch.clamp(lam * 10.0, max=1e6)
+                    good = torch.isfinite(new_err) & (new_err < err)
+                    poses = se3.where(good.expand(P), cand, poses)
+                    improved = (err - torch.where(good, new_err, err)) > rel_exit_tol * torch.clamp(err, min=1e-30)
+                    err = torch.where(good, new_err, err)
+                    lam = torch.where(good, lam_acc, lam_rej)
+                k += 1
+                with trace.span("pose_graph.read"):
+                    improved = bool(improved)
+                stall = 0 if improved else stall + 1
+        gnorm = torch.linalg.norm(g) if k else torch.zeros((), dtype=dtype, device=dev)  # the last trial's
+        solve.set(kind=kind, trials=k, cg_iters=cg_total, stall=stall)
     return poses, SolveInfo(error0=err0, error=err, iterations=k, stall=stall, cg_iters_total=cg_total,
                             solver_kind=kind, lam=lam, error_init=err_init, grad_norm=gnorm)
 

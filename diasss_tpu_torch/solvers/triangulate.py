@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import trace
 from ..config import KeypointNoiseConfig, LoopClosureConfig
 
 from ..factors.sss_point import kp_noise_sigmas, sss_point_residual
@@ -52,13 +53,15 @@ def triangulate_batch(
     m_s = torch.stack([sr_s, torch.zeros_like(sr_s)], dim=-1)
     m_t = torch.stack([sr_t, torch.zeros_like(sr_t)], dim=-1)
     args = (Tp_s, Tp_t, Ts_s, Ts_t, sig_s, sig_t, m_s, m_t)
-    if with_prior:
-        baseline = torch.linalg.norm(Tp_s.t[..., :2] - Tp_t.t[..., :2], dim=-1)
-        xy = torch.full_like(baseline, lc_cfg.tria_xy_sigma)
-        prior_sigmas = torch.stack([xy, xy, torch.clamp(baseline / lc_cfg.tria_z_baseline_div, min=1e-6)], dim=-1)
-        res = levenberg_marquardt(_tria_residual, _add, lm_init, args + (lm_init, prior_sigmas), 3,
-                                  max_iters=lc_cfg.max_lm_iters)
-    else:
-        res = levenberg_marquardt(_tria_residual_no_prior, _add, lm_init, args, 3,
-                                  max_iters=lc_cfg.max_lm_iters)
+    with trace.span("lc.triangulate"):
+        if with_prior:
+            baseline = torch.linalg.norm(Tp_s.t[..., :2] - Tp_t.t[..., :2], dim=-1)
+            xy = torch.full_like(baseline, lc_cfg.tria_xy_sigma)
+            prior_sigmas = torch.stack([xy, xy, torch.clamp(baseline / lc_cfg.tria_z_baseline_div, min=1e-6)],
+                                       dim=-1)
+            res = levenberg_marquardt(_tria_residual, _add, lm_init, args + (lm_init, prior_sigmas), 3,
+                                      max_iters=lc_cfg.max_lm_iters)
+        else:
+            res = levenberg_marquardt(_tria_residual_no_prior, _add, lm_init, args, 3,
+                                      max_iters=lc_cfg.max_lm_iters)
     return res.x
