@@ -17,8 +17,8 @@ def ground_range_index(col: torch.Tensor, n_bins) -> torch.Tensor:
     """``n_bins``: an int, or a tensor of bin counts that broadcasts against
     ``col`` (one per entry, on a survey whose lines differ in bin count)."""
     half = n_bins // 2
-    top = torch.as_tensor(half - 1, device=col.device)
-    return torch.clamp(torch.minimum(torch.abs(col - half), top), min=0)
+    # two clamps, no host-made tensor: a CUDA graph can capture it
+    return torch.clamp(torch.clamp(torch.abs(col - half), max=half - 1), min=0)
 
 
 def is_starboard(col: torch.Tensor, n_bins: int) -> torch.Tensor:

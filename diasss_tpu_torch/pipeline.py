@@ -327,7 +327,7 @@ def _lc_counts(host: LCResult, max_iters: int) -> Dict[str, int]:
 def _solve_two_stage(frames, geo_list, kps_pairs, pair_ids, cap, cfg: PipelineConfig, rng,
                      timings, counters):
     """Batched LC mini-solves -> quality gate -> global pose-graph LM."""
-    from .solvers.lc import loop_closing_tfs_stacked
+    from .solvers.lc import graph_counts, loop_closing_tfs_stacked
     from .solvers import pose_graph
 
     dev = frames[0].geo.device
@@ -343,12 +343,16 @@ def _solve_two_stage(frames, geo_list, kps_pairs, pair_ids, cap, cfg: PipelineCo
                 return torch.as_tensor(a, dtype=dtype, device=dev)
 
             gras, n_bins = _stack_tables(frames)
+            before = dict(graph_counts)
             stacked = loop_closing_tfs_stacked(
                 up(rows_cat), up(valid_cat), up(src_cat, torch.int64), up(tgt_cat, torch.int64),
                 _stack_padded([f.dr_poses for f in frames]), _stack_padded(list(geo_list)),
                 _stack_padded([f.altitudes for f in frames]), gras, n_bins=n_bins, kp_cfg=cfg.kp_noise,
                 cfg=cfg.loop_closure,
             )
+            if graph_counts["replays"] > before["replays"]:  # the batch ran as a CUDA graph
+                for k, n in graph_counts.items():
+                    _count(counters, f"lc_graph_{k}", n - before[k])
             host = pytree.tree_map(lambda a: a.cpu(), stacked)
             for k, key in enumerate(pair_ids):
                 lc_results[key] = pytree.tree_map(lambda a: a[k * cap:(k + 1) * cap], host)

@@ -12,9 +12,11 @@ when ``|yaw| > 2*pi/3``, strictly per correspondence.
 from __future__ import annotations
 
 import math
+from collections import OrderedDict
 from typing import NamedTuple
 
 import torch
+from torch.utils import _pytree as pytree
 
 from .. import trace
 from ..config import KeypointNoiseConfig, LoopClosureConfig
@@ -71,12 +73,13 @@ def _lc_residual(state: LCState, Tp_s, Ts, Tp_st, sig_odo, sig_kp1, sig_kp2, m1,
     return torch.cat([r_odo, r_kp1, r_kp2], dim=-1)
 
 
-def _solve_batch(pair, row_s, row_t, g_s, g_t, alt_s, alt_t, gras_t, n_bins,
-                kp_cfg: KeypointNoiseConfig, cfg: LoopClosureConfig):
+def _solve_eager(pair, row_s, row_t, g_s, g_t, alt_s, alt_t, gras_t, n_bins,
+                 kp_cfg: KeypointNoiseConfig, cfg: LoopClosureConfig):
     """The JAX package's per-correspondence ``_solve_one``, over a batch of K
     correspondences: pair (K, 7), DR rows (K, 6), geo (K, 2), altitudes (K,),
     target ground-range tables (K, G), the source frame's bin count (an int
-    or (K,))."""
+    or (K,)).  Row k of every output depends on row k of the inputs alone,
+    and nothing in it reads the device back to the host."""
     dtype, dev = row_s.dtype, row_s.device
     K = pair.shape[0]
     bin_t = pair[:, 4].to(torch.int64)
@@ -140,6 +143,115 @@ def _solve_batch(pair, row_s, row_t, g_s, g_t, alt_s, alt_t, gras_t, n_bins,
     est_range_e, est_plane_e = range_plane(Tp_s, X2_est, L_est)
     return (rel, var6, quality, ini_dist, fnl_dist, dr_range_e, dr_plane_e,
             est_range_e, est_plane_e, L_est[:, 2], pair[:, 6], res.iterations)
+
+
+GRAPH_CACHE_SIZE = 8  # captured batch shapes kept per process, least recently used dropped
+_graphs: "OrderedDict[tuple, _Graph]" = OrderedDict()
+graph_counts = {"captures": 0, "replays": 0}  # graph-path calls in this process (SlamResult.counters)
+
+
+class _Graph(NamedTuple):
+    graph: object  # torch.cuda.CUDAGraph
+    inputs: tuple  # static inputs, padded rows
+    out: tuple  # static outputs, padded rows
+
+
+def padded_rows(k: int) -> int:
+    """The next power of two at or above ``k`` (the graph path's row count)."""
+    return 1 << max(k - 1, 0).bit_length()
+
+
+def _fill(static: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """Copy ``t`` into the leading rows of ``static`` and repeat its last row
+    over the rest, so that every padded row computes finite numbers."""
+    k = t.shape[0]
+    static[:k].copy_(t)
+    static[k:].copy_(t[-1:].expand_as(static[k:]))
+    return static
+
+
+def _static_inputs(tensors, n_rows: int) -> tuple:
+    """Fresh ``n_rows``-row buffers holding ``tensors`` (:func:`_fill`)."""
+    return tuple(_fill(torch.empty((n_rows, *t.shape[1:]), dtype=t.dtype, device=t.device), t) for t in tensors)
+
+
+def _real_rows(out, k: int):
+    """The first ``k`` rows of every output, copied out of the static ones."""
+    return pytree.tree_map(lambda a: a[:k].clone(), out)
+
+
+def _graph_key(rows_padded: int, tensors, n_bins, kp_cfg, cfg) -> tuple:
+    """What one captured graph serves: the padded row count, each input's
+    row shape and dtype (the ground-range table's width G among them), the
+    device, the bin count (an int by value, a tensor by kind) and the
+    configurations."""
+    bins = ("tensor",) if isinstance(n_bins, torch.Tensor) else ("int", int(n_bins))
+    return (rows_padded, tuple((tuple(t.shape[1:]), t.dtype) for t in tensors), tensors[0].device, bins,
+            kp_cfg, cfg)
+
+
+def _lookup(key):
+    """The graph captured for ``key``, now the most recently used; or None."""
+    entry = _graphs.get(key)
+    if entry is not None:
+        _graphs.move_to_end(key)
+    return entry
+
+
+def _remember(key, entry: _Graph) -> None:
+    _graphs[key] = entry
+    while len(_graphs) > GRAPH_CACHE_SIZE:
+        _graphs.popitem(last=False)
+
+
+def _create_handles(dev: torch.device, dtype: torch.dtype) -> None:
+    """Create the cuBLAS and cuSOLVER handles the solve uses, which a
+    capture cannot create: a batched Cholesky factorisation, triangular
+    solve and matrix product of two 3x3 systems."""
+    a = torch.eye(3, dtype=dtype, device=dev).expand(2, 3, 3)
+    torch.linalg.solve_triangular(torch.linalg.cholesky_ex(a)[0], a @ a, upper=False)
+
+
+def _capture(key, tensors, n_rows: int, n_bins, kp_cfg, cfg) -> _Graph:
+    """Capture :func:`_solve_eager` at ``n_rows`` rows on static copies of
+    ``tensors`` (the bin counts the ninth, where they are a tensor)."""
+    inputs = _static_inputs(tensors, n_rows)
+    _create_handles(tensors[0].device, tensors[1].dtype)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = _solve_eager(*inputs[:8], inputs[8] if len(inputs) > 8 else n_bins, kp_cfg, cfg)
+    entry = _Graph(graph, inputs, out)
+    _remember(key, entry)
+    graph_counts["captures"] += 1
+    return entry
+
+
+def _solve_batch(pair, row_s, row_t, g_s, g_t, alt_s, alt_t, gras_t, n_bins,
+                 kp_cfg: KeypointNoiseConfig, cfg: LoopClosureConfig):
+    """:func:`_solve_eager`; on a CUDA device as the replay of one CUDA
+    graph, captured at the first call of each :func:`_graph_key` with the
+    rows padded to :func:`padded_rows` by repeating the last one.  The
+    outputs are the real rows, copied out of the graph's buffers; a
+    capture that fails raises."""
+    k = pair.shape[0]
+    if pair.device.type != "cuda":
+        return _solve_eager(pair, row_s, row_t, g_s, g_t, alt_s, alt_t, gras_t, n_bins, kp_cfg, cfg)
+    tensors = (pair, row_s, row_t, g_s, g_t, alt_s, alt_t, gras_t)
+    if isinstance(n_bins, torch.Tensor):
+        tensors += (n_bins,)
+    n_rows = padded_rows(k)
+    key = _graph_key(n_rows, tensors, n_bins, kp_cfg, cfg)
+    entry = _lookup(key)
+    # a replay records no lm.* span: the span says what it runs
+    with trace.span("lc.graph", captured=entry is None, rows=k, rows_padded=n_rows, lm_iters=2 * cfg.max_lm_iters):
+        if entry is None:
+            entry = _capture(key, tensors, n_rows, n_bins, kp_cfg, cfg)
+        else:
+            for static, t in zip(entry.inputs, tensors):
+                _fill(static, t)
+        entry.graph.replay()
+        graph_counts["replays"] += 1
+        return _real_rows(entry.out, k)
 
 
 def _result(out, valid: torch.Tensor) -> LCResult:

@@ -66,13 +66,21 @@ def linearize(residual_fn: Callable, retract_fn: Callable, x, args, n_dim: int):
     return r, cols.permute(1, 2, 0)
 
 
-def cholesky_solve_or_nan(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def cholesky_solve_or_nan(A: torch.Tensor, b: torch.Tensor, triangular: bool = False) -> torch.Tensor:
     """Solve the SPD systems ``A x = b`` (b (..., n) or (..., n, k)); systems
     whose Cholesky factorisation fails give NaN, as ``jnp.linalg.cholesky``
-    does, so an LM step on them is rejected."""
+    does, so an LM step on them is rejected.  ``triangular`` solves with the
+    factor by two triangular solves (on the CPU the BLAS calls, and bits, of
+    ``torch.cholesky_solve``), which a CUDA graph can capture: on the card
+    the batched ``torch.cholesky_solve`` takes MAGMA's solve, which
+    allocates device memory as it runs, and a capture refuses that."""
     L, info = torch.linalg.cholesky_ex(A)
     vec = b.dim() == A.dim() - 1
-    x = torch.cholesky_solve(b[..., None] if vec else b, L)
+    rhs = b[..., None] if vec else b
+    if triangular:
+        x = torch.linalg.solve_triangular(L.mT, torch.linalg.solve_triangular(L, rhs, upper=False), upper=True)
+    else:
+        x = torch.cholesky_solve(rhs, L)
     x = x[..., 0] if vec else x
     bad = (info != 0).reshape(info.shape + (1,) * (x.dim() - info.dim()))
     return torch.where(bad, torch.full_like(x, float("nan")), x)
@@ -111,7 +119,7 @@ def levenberg_marquardt(
             with trace.span("lm.step"):
                 Jt = J.transpose(-1, -2)
                 A = Jt @ J + lam[:, None, None] * eye
-                delta = cholesky_solve_or_nan(A, -(Jt @ r[..., None])[..., 0])
+                delta = cholesky_solve_or_nan(A, -(Jt @ r[..., None])[..., 0], triangular=True)
                 x_new = retract_fn(x, delta)
                 err_new = error_of(x_new)
                 good = torch.isfinite(err_new) & (err_new < err)
@@ -136,5 +144,5 @@ def marginal_covariance(hessian: torch.Tensor, block: slice) -> torch.Tensor:
     """``(H^-1)[block, block]`` per problem (Marginals::QR equivalent)."""
     n = hessian.shape[-1]
     eye = torch.eye(n, dtype=hessian.dtype, device=hessian.device)[:, block]
-    cols = cholesky_solve_or_nan(hessian, eye.expand(*hessian.shape[:-2], n, eye.shape[-1]))
+    cols = cholesky_solve_or_nan(hessian, eye.expand(*hessian.shape[:-2], n, eye.shape[-1]), triangular=True)
     return cols[..., block, :]
