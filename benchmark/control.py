@@ -4,13 +4,14 @@
 
 For each seed, at the configuration's own size, in one process: the
 survey from the seed, one pass of the program on the card (after one
-warm-up pass on the first seed), the plain reference's answers, and the
-control's: the plain reference in float32 with TF32 products, the
-precision below the float32 with TF32 off that the configuration states.
-Prints one JSON line per seed on standard output: the numbers of
-:mod:`.check` for the program against the reference (the lower reading)
-and for the control against the reference (the upper reading).  The
-benchmark's own runs do not run it.
+warm-up pass on the first seed), the answers of the configuration's plain
+reference, and the control's: that reference's ``run(survey,
+control=True)``, in the precision below the one the configuration states
+(for ``plainref``: float32 with TF32 products, below float32 with TF32
+off).  Prints one JSON line per seed on standard output: the reference's
+numbers, held by :mod:`.check`, for the program against the reference
+(the lower reading) and for the control against the reference (the upper
+reading).  The benchmark's own runs do not run it.
 """
 
 import argparse
@@ -27,15 +28,15 @@ if __package__ in (None, ""):
 
 import torch  # noqa: E402
 
-from benchmark import check, harness, plainref, registry, slampass, synthetic  # noqa: E402
+from benchmark import check, harness, registry, slampass, synthetic  # noqa: E402
 
 
-def numbers(config: dict, side: dict, ref: dict) -> dict:
-    values, _ = check.compare([side], side, ref, config["check"])
+def numbers(config: dict, reference, side: dict, ref: dict) -> dict:
+    values, _ = check.compare(reference.numbers([side], ref), config["check"])
     return {k: (v if math.isfinite(v) else str(v)) for k, (v, _) in values.items()}
 
 
-def readings(config: dict, seed: int, device, warm: bool) -> dict:
+def readings(config: dict, reference, seed: int, device, warm: bool) -> dict:
     survey = synthetic.make_survey(**config["survey"], seed=seed)
     out = {"seed": seed}
     pkg = harness.program()
@@ -45,18 +46,17 @@ def readings(config: dict, seed: int, device, warm: bool) -> dict:
     if warm:
         one_pass()
     record = one_pass()
-    prog = slampass.outputs(record)
+    prog = reference.outputs(record)
     out.update(program_wall_s=record.end - record.start, program_lc=record.result.n_lc_accepted,
                program_ate=[record.result.ate_dr, record.result.ate_est])
     del record, one_pass
     t0 = time.perf_counter()
-    ref = plainref.run(survey)
+    ref = reference.run(survey)
     out["reference_s"] = time.perf_counter() - t0
-    out["program"] = numbers(config, prog, ref)
+    out["program"] = numbers(config, reference, prog, ref)
     t0 = time.perf_counter()
-    out["control"] = numbers(config, plainref.run(survey, control=True), ref)
+    out["control"] = numbers(config, reference, reference.run(survey, control=True), ref)
     out["control_s"] = time.perf_counter() - t0
-    out["reference_lc"] = sum(int(acc.sum()) for acc, _ in ref["lc"].values())
     return out
 
 
@@ -71,10 +71,12 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda", 0)
-    config = registry.Registry(harness.SPEC).config(args.config)
+    reg = registry.Registry(harness.SPEC)
+    config = reg.config(args.config)
+    reference = reg.reference(config)
     print(f"[card] {harness.card_line()}", file=sys.stderr, flush=True)
     for k, seed in enumerate(args.seeds):
-        print(json.dumps(readings(config, seed, device, warm=k == 0)), flush=True)
+        print(json.dumps(readings(config, reference, seed, device, warm=k == 0)), flush=True)
     return 0
 
 

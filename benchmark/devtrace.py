@@ -7,15 +7,15 @@ its events this module takes:
 * ``busy_s``: the union of the device's activity intervals (kernels,
   copies and sets; overlapping ones counted once) inside the stretch, and
   ``window_s``, the stretch's span on the profiler's clock;
+* ``ops``: every device operation's seconds and count, by name;
 * the ``breakdown``: the device operations that took the most time, and
   the idle gaps summed by what the host was running when they fell (the
-  innermost ``record_function`` span and the innermost host operation at
-  the gap's middle)."""
+  innermost ``record_function`` span, which is the program's innermost
+  open span, and the innermost host operation at the gap's middle)."""
 
 from typing import Dict, List, NamedTuple, Tuple
 
-SPAN_PREFIX = "benchmark."  # the harness's record_function spans
-STRETCH_SPAN = SPAN_PREFIX + "stretch"
+STRETCH_SPAN = "benchmark.stretch"  # the harness's record_function span around the stretch
 TOP = 10
 
 
@@ -28,9 +28,10 @@ class Event(NamedTuple):
 class TraceSummary(NamedTuple):
     busy_s: float
     window_s: float
-    device_ops: List[Tuple[str, float]]
-    idle_gaps: List[Tuple[str, float]]
+    device_ops: List[Tuple[str, float]]  # the TOP operations by seconds
+    idle_gaps: List[Tuple[str, float]]  # the TOP idle gaps by seconds
     n_device_events: int
+    ops: Dict[str, Tuple[float, int]]  # every device operation's (seconds, count), by name
 
 
 def union_seconds(intervals: List[Tuple[int, int]], lo: int, hi: int):
@@ -83,36 +84,38 @@ def label_gaps(gaps: List[Tuple[int, int]], host: List[Event], spans: List[Event
 
 def summarize(device: List[Event], host: List[Event], spans: List[Event], lo: int, hi: int) -> TraceSummary:
     busy, gaps = union_seconds([(e.start_ns, e.end_ns) for e in device], lo, hi)
-    by_name: Dict[str, float] = {}
-    n = 0
+    ops: Dict[str, Tuple[float, int]] = {}
     for e in device:
         if e.end_ns <= lo or e.start_ns >= hi:
             continue
-        by_name[e.name] = by_name.get(e.name, 0.0) + (e.end_ns - e.start_ns) / 1e9
-        n += 1
+        s, k = ops.get(e.name, (0.0, 0))
+        ops[e.name] = (s + (e.end_ns - e.start_ns) / 1e9, k + 1)
     idle = label_gaps(gaps, host, spans)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:TOP]
+    top = sorted(((name, s) for name, (s, _) in ops.items()), key=lambda kv: -kv[1])[:TOP]
     top_idle = sorted(idle.items(), key=lambda kv: -kv[1])[:TOP]
-    return TraceSummary(busy / 1e9, (hi - lo) / 1e9, top, top_idle, n)
+    return TraceSummary(busy / 1e9, (hi - lo) / 1e9, top, top_idle, sum(k for _, k in ops.values()), ops)
 
 
 def events_of(prof):
     """``(device, host, spans, lo, hi)`` from a finished ``torch.profiler``
-    run: device activity, host operations and ``record_function`` spans of
-    the thread that opened the stretch, and the stretch's bounds."""
+    run: device activity, host operations and ``record_function`` spans (the
+    program's, which it opens under an active profiler) of the thread that
+    opened the stretch, and the stretch's bounds."""
     import torch
 
     raw = prof.profiler.kineto_results.events()
     cuda = torch.autograd.DeviceType.CUDA
+    named = {e.name() for e in raw if e.device_type() != cuda and e.is_user_annotation()}
     device, cpu = [], []
     stretch = None
     for e in raw:
         start = e.start_ns()
         ev = (e.name(), start, start + e.duration_ns())
         if e.device_type() == cuda:
-            # record_function spans are mirrored onto the device's timeline
-            # (gpu_user_annotation): they are not device work
-            if not (e.is_user_annotation() or ev[0].startswith(SPAN_PREFIX)):
+            # record_function spans, the program's and the stretch's, are
+            # mirrored onto the device's timeline (gpu_user_annotation): they
+            # are not device work
+            if not (e.is_user_annotation() or ev[0] in named):
                 device.append(Event(*ev))
         else:
             cpu.append((Event(*ev), e.start_thread_id(), e.is_user_annotation()))

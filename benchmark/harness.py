@@ -3,27 +3,32 @@ the comparison with the plain reference, and the result line.
 
     python3 benchmark/run.py --workload CELL --seed N --seconds S --trace 0|1
 
-The cell, its configuration, its traffic mix and its per-layer metrics are
-found by name (:mod:`.registry`).  The run:
+The cell, its configuration, its traffic mix, its per-layer metrics and
+its configuration's plain reference are found by name (:mod:`.registry`).
+The run:
 
 1. exits with 2, printing no result, unless the card is there with as many
    devices as the cell asks for;
 2. set-up: imports, the mix's surveys at the configuration's sizes (the
    benchmark's frozen ``make_survey``), the order in which the passes
-   visit them, drawn from ``--seed``, the program's configuration, and the
-   configuration's warm-up passes, which build and load the cell's kernels
-   and visit every shape the window will use;
+   visit them, drawn from ``--seed``, the pipeline profile that the
+   configuration names, and the configuration's warm-up passes, which
+   build and load the cell's kernels and visit every shape the window will
+   use;
    ``setup_s`` runs from the process's start to the first timed pass;
 3. the window: the mix's passes (:mod:`.traffic`) for ``--seconds``;
    ``pings_per_s`` is every ping of every pass over the window's whole time;
 4. with ``--trace 1``: the per-layer metrics, from the window's stage
-   seconds and from one more pass after it under ``torch.profiler`` (the
-   profiled stretch);
-5. the device's peak memory is read, the program's state freed, and the
-   plain reference (:mod:`.plainref`, numpy and scipy on the host) works
-   out the answers for the survey that the first timed pass ran;
-   :mod:`.check` holds the poses of every pass of that survey, and the loop
-   closures of its last pass, to them;
+   seconds and program spans (each pass inside the program's
+   ``trace.recording()``; the ``--trace 0`` run records none) and from one
+   more pass after it under ``torch.profiler`` (the profiled stretch),
+   whose idle gaps are named by the program's innermost open span;
+5. the device's peak memory is read, the program's answers of every pass
+   of the checked survey (the one the first timed pass ran) are taken in
+   the reference's layout, the program's state is freed, and the
+   configuration's plain reference (numpy and scipy on the host) works out
+   that survey's answers; :mod:`.check` holds the numbers that the
+   reference forms from both to their limits;
 6. exits with 3, printing no result, if a module of JAX or of the JAX
    package is loaded (:mod:`.nojax`);
 7. prints the compared numbers beside their limits as the last lines of
@@ -32,14 +37,13 @@ found by name (:mod:`.registry`).  The run:
 
 import argparse
 import gc
-import importlib
 import json
 import math
 import subprocess
 import sys
 import time
 from pathlib import Path
-from typing import Dict, List, NamedTuple, Optional
+from typing import Dict, List, NamedTuple, Optional, Sequence
 
 from . import check, nojax, registry, slampass, traffic
 
@@ -47,13 +51,6 @@ ROOT = Path(__file__).resolve().parents[1]
 SPEC = ROOT / "BENCHMARK.json"
 NO_CARD = 2
 JAX_LOADED = 3
-
-# run_slam's stage entries, each wrapped in a record_function span in the
-# profiled stretch, so that idle gaps read by what the host was running
-STAGE_SPANS = {"frame": ("build_keyframes_batch",),
-               "pipeline": ("_overlap_pairs", "_assemble_pairs", "_solve_two_stage", "_evaluate_pairs"),
-               "solvers.lc": ("loop_closing_tfs_stacked",),
-               "solvers.pose_graph": ("build_chain_graph", "solve_pose_graph")}
 
 
 def log(*parts):
@@ -65,6 +62,8 @@ class Context(NamedTuple):
 
     stages: List[Dict[str, float]]  # each unprofiled window pass's stage seconds
     trace: object  # devtrace.TraceSummary of the profiled stretch, or None
+    spans: Sequence[list] = ()  # each unprofiled window pass's program spans (SpanRecords)
+    stretch_spans: Sequence = ()  # the profiled stretch's program spans
 
     def stage_seconds(self, names) -> Optional[float]:
         """The named stages' seconds summed over the passes, per pass; None
@@ -88,39 +87,33 @@ def program():
     return pkg
 
 
-def profiled_stretch(pkg, one_pass, device):
-    """One pass under ``torch.profiler`` (host and device activity), with a
-    ``record_function`` span around each stage entry of :data:`STAGE_SPANS`.
-    Returns its :class:`devtrace.TraceSummary`."""
+def recorded(pkg, fn):
+    """``(fn(), spans)``: ``fn`` run inside the program's span recording
+    (``pkg.trace.recording()``); no spans where the program has none."""
+    trace = getattr(pkg, "trace", None)
+    if trace is None:
+        return fn(), []
+    with trace.recording() as rec:
+        out = fn()
+    return out, rec.spans
+
+
+def profiled_stretch(pkg, fn, device):
+    """``fn()`` under ``torch.profiler`` (host and device activity) and the
+    program's span recording, inside the :data:`devtrace.STRETCH_SPAN` span:
+    ``(fn's result, its spans, the profiler)``.  Under an active profiler
+    every program span is also a ``record_function`` span."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from . import devtrace
 
-    def spanned(name):
-        def make(entry):
-            def run(*args, **kwargs):
-                with record_function(f"benchmark.{name}"):
-                    return entry(*args, **kwargs)
-            return run
-        return make
-
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
-    with slampass.Patches() as w:
-        for sub, names in STAGE_SPANS.items():
-            for name in names:
-                w.wrap(importlib.import_module(f"{pkg.__name__}.{sub}"), name, spanned(name))
-        pkg.pipeline._sync(device)
-        t0 = time.perf_counter()
-        with profile(activities=activities) as prof:
-            with record_function(devtrace.STRETCH_SPAN):
-                one_pass()
-                pkg.pipeline._sync(device)
-        t1 = time.perf_counter()
-    summary = devtrace.summarize(*devtrace.events_of(prof))
-    log(f"[trace] stretch {t1 - t0:.3f} s on the host's clock, {summary.window_s:.6f} s on the profiler's; "
-        f"{summary.n_device_events} device events; busy {summary.busy_s:.6f} s; reduced in "
-        f"{time.perf_counter() - t1:.1f} s")
-    return summary
+    pkg.pipeline._sync(device)
+    with profile(activities=activities) as prof:
+        with record_function(devtrace.STRETCH_SPAN):
+            out, spans = recorded(pkg, fn)
+            pkg.pipeline._sync(device)
+    return out, spans, prof
 
 
 class Summary(NamedTuple):
@@ -130,8 +123,8 @@ class Summary(NamedTuple):
     end: float
     stages: Dict[str, float]
     pings: int
-    survey: int  # index into the mix's surveys
-    poses_t: object  # the estimated positions, where the pass ran the checked survey
+    record: object  # its slampass.PassRecord, where the pass ran the checked survey
+    spans: list  # the program's spans, where the pass was recorded
 
 
 def run_cell(plan: registry.Plan, reg: registry.Registry, seed: int, seconds: float, trace: bool,
@@ -142,11 +135,11 @@ def run_cell(plan: registry.Plan, reg: registry.Registry, seed: int, seconds: fl
 
     The passes visit the mix's surveys in the order drawn from ``seed``;
     the survey of the first timed pass is the checked one: every pass of
-    it in the window is held to the reference, and the last such pass's
-    intermediate outputs too."""
+    it, in the window and in the profiled stretch, is held to the
+    configuration's reference."""
     import torch
 
-    from . import plainref, synthetic
+    from . import devtrace, synthetic
 
     cfg_spec = plan.config
     cuda = device.type == "cuda"
@@ -160,30 +153,36 @@ def run_cell(plan: registry.Plan, reg: registry.Registry, seed: int, seconds: fl
     checked = visit[0]
     cfg = slampass.pipeline_config(pkg.config, cfg_spec["pipeline"])
     passes = [slampass.make_pass(pkg, *slampass.survey_items(s), cfg, device) for s in surveys]
-    kept = {}  # the latest full record of the checked survey
 
-    def one_pass(k: int) -> Summary:
+    def one_pass(k: int, record: bool = False) -> Summary:
         i = visit[k % len(visit)]
-        r = passes[i]()
-        if i == checked:
-            kept["last"] = r
-        return Summary(r.start, r.end, r.stages, r.pings, i, r.result.poses.t if i == checked else None)
+        r, spans = recorded(pkg, passes[i]) if record else (passes[i](), [])
+        return Summary(r.start, r.end, r.stages, r.pings, r if i == checked else None, spans)
 
     traffic.warm_up(one_pass, int(cfg_spec["warmup_passes"]))
-    kept.clear()
     setup_s = time.perf_counter() - process_start
-    window = traffic.run_window(one_pass, seconds, mix)
+    window = traffic.run_window(lambda k: one_pass(k, trace), seconds, mix)
     log(f"[window] {len(window.passes)} passes in {window.end - window.start:.4f} s; surveys in the order "
         f"{visit} of seeds {mix['survey_seeds']}; walls "
         + " ".join(f"{p.end - p.start:.4f}" for p in window.passes))
-    last = kept["last"]
-    log(f"[window] checked survey (seed {mix['survey_seeds'][checked]}): ATE DR -> EST {last.result.ate_dr:.4f} "
-        f"-> {last.result.ate_est:.4f} m; loop closures {last.result.n_lc_accepted}; counters "
-        f"{json.dumps(last.result.counters, sort_keys=True)}")
+    records = [p.record for p in window.passes if p.record is not None]
+    last = records[-1].result
+    log(f"[window] checked survey (seed {mix['survey_seeds'][checked]}): ATE DR -> EST {last.ate_dr:.4f} "
+        f"-> {last.ate_est:.4f} m; loop closures {last.n_lc_accepted}; counters "
+        f"{json.dumps(last.counters, sort_keys=True)}")
     metrics = {}
     if trace:
-        summary = profiled_stretch(pkg, lambda: one_pass(0), device)
-        ctx = Context([p.stages for p in window.passes], summary)
+        t0 = time.perf_counter()
+        stretch, stretch_spans, prof = profiled_stretch(pkg, lambda: one_pass(0), device)
+        t1 = time.perf_counter()
+        summary = devtrace.summarize(*devtrace.events_of(prof))
+        del prof
+        log(f"[trace] stretch {t1 - t0:.3f} s on the host's clock, {summary.window_s:.6f} s on the profiler's; "
+            f"{summary.n_device_events} device events; busy {summary.busy_s:.6f} s; {len(stretch_spans)} program "
+            f"spans; reduced in {time.perf_counter() - t1:.1f} s")
+        records.append(stretch.record)
+        del stretch
+        ctx = Context([p.stages for p in window.passes], summary, [p.spans for p in window.passes], stretch_spans)
         readers = reg.readers(plan)
         for m in plan.per_layer:
             value = readers[m["name"]].read(ctx)
@@ -202,17 +201,16 @@ def run_cell(plan: registry.Plan, reg: registry.Registry, seed: int, seconds: fl
     log("[window] stage seconds per pass " + json.dumps(stage_means, sort_keys=True))
     peak = torch.cuda.max_memory_allocated(device) if cuda else 0
     attempted = len(window.passes)
-    checked_out = [{"poses_t": p.poses_t.double().cpu().numpy()} for p in window.passes if p.survey == checked]
-    last_out = slampass.outputs(kept.pop("last"))
-    del window, one_pass, passes, last
+    outs = [plan.reference.outputs(r) for r in records]
+    del window, one_pass, passes, records, last
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
     t_ref = time.perf_counter()
-    ref_out = plainref.run(surveys[checked])
-    numbers, failed = check.compare(checked_out + [last_out], last_out, ref_out, cfg_spec["check"])
-    log(f"[reference] one pass in {time.perf_counter() - t_ref:.1f} s; {len(checked_out)} passes of the checked "
-        f"survey compared")
+    ref_out = plan.reference.run(surveys[checked])
+    numbers, failed = check.compare(plan.reference.numbers(outs, ref_out), cfg_spec["check"])
+    log(f"[reference] one pass in {time.perf_counter() - t_ref:.1f} s; {len(outs)} passes of the checked survey "
+        f"compared")
     return {"correct": check.passed(numbers, failed), "attempted": attempted, "failed": failed,
             "metrics": metrics, "peak": peak, "device_extra": dev_info, "breakdown": breakdown,
             "numbers": numbers}

@@ -36,6 +36,21 @@ configuration's pipeline profile (the upstream optimizer's, cited by line).
 :class:`Arith` chooses the arithmetic: float64, or the control, which is
 float32 with the operands of every matrix product rounded to TF32, the
 precision below the float32 with TF32 off that the configuration states.
+
+The numbers compared (:func:`numbers`; a configuration's ``check`` entry
+names the ones it holds, with their limits):
+
+* ``pose_gap_m``: the widest distance between a ping's estimated position
+  in a pass and in the reference, per checked pass (metres): each pass is
+  held to it alone;
+* ``lc_flips``: keypoint pairs whose loop closure one side accepts and the
+  other does not (a count; the last checked pass);
+* ``lc_gap_m``: the widest distance between the relative translations that
+  the two sides' loop-closure problems give one keypoint pair, over every
+  pair, accepted or not (metres; the same pass).
+
+A number that cannot be formed (another set of gated pairs, another count
+of keypoint pairs, a shape that differs) reads as infinite, and so fails.
 """
 
 import math
@@ -46,6 +61,9 @@ import scipy.sparse as sp
 import scipy.sparse.linalg as spla
 
 DEG = math.pi / 180.0
+
+PROFILE = {"profile": "default"}  # the program's pipeline profile that this reference computes
+NUMBERS = ("pose_gap_m", "lc_flips", "lc_gap_m")
 
 # the default pipeline profile (upstream optimizer.cpp and diasss2.cpp)
 MIN_OVERLAP = 0.4  # pair gate, IoU of the geo extents (diasss2.cpp:28)
@@ -533,3 +551,62 @@ def run(survey, control: bool = False) -> Dict[str, object]:
     )
     X = solve_pose_graph(ar, graph, X0)
     return {"poses_t": X.t.astype(np.float64), "lc": lc}
+
+
+# --- the program's answers, and the numbers that compare them -----------------------------------
+
+def _host(x) -> np.ndarray:
+    return x.detach().cpu().numpy() if hasattr(x, "detach") else np.asarray(x)
+
+
+def outputs(rec) -> dict:
+    """The program's answers of one pass (``rec.result``, its
+    ``SlamResult``), on the host, in the layout of :func:`run`:
+    ``poses_t`` (P, 3), and ``lc``, per gated line pair, ``(accepted,
+    rel_t)`` of its keypoint pairs (the padding the program adds left out).
+    A pair whose valid rows do not lead its padded batch has ``None``
+    there, which the comparison fails."""
+    lc = {}
+    for key, res in rec.result.lc_results.items():
+        valid = _host(res.valid).astype(bool)
+        n = int(valid.sum())
+        if not valid[:n].all():
+            lc[key] = None
+            continue
+        accepted = (_host(res.quality[:n]) > 0) & np.all(np.isfinite(_host(res.variance6[:n])), axis=-1)
+        lc[key] = (accepted, _host(res.rel_pose.t[:n]).astype(np.float64))
+    return {"poses_t": _host(rec.result.poses.t).astype(np.float64), "lc": lc}
+
+
+def pose_gap(prog: dict, ref: dict) -> float:
+    a, b = prog["poses_t"], ref["poses_t"]
+    if a.shape != b.shape:
+        return math.inf
+    gap = np.linalg.norm(a - b, axis=-1)
+    return float(np.max(gap)) if np.all(np.isfinite(gap)) else math.inf
+
+
+def lc_numbers(prog: dict, ref: dict):
+    """``(lc_flips, lc_gap_m)``."""
+    a, b = prog["lc"], ref["lc"]
+    if a.keys() != b.keys():
+        return math.inf, math.inf
+    flips, gap = 0, 0.0
+    for key, theirs in b.items():
+        mine = a[key]
+        if mine is None or mine[0].shape != theirs[0].shape:
+            return math.inf, math.inf
+        (acc_a, t_a), (acc_b, t_b) = mine, theirs
+        flips += int(np.sum(acc_a != acc_b))
+        if len(t_b):
+            d = np.linalg.norm(t_a - t_b, axis=-1)
+            gap = max(gap, float(np.max(d)) if np.all(np.isfinite(d)) else math.inf)
+    return float(flips), gap
+
+
+def numbers(passes: List[dict], ref: dict) -> Dict[str, object]:
+    """The numbers of :data:`NUMBERS` for the :func:`outputs` of every
+    checked pass, in order: ``pose_gap_m`` one per pass, the loop-closure
+    numbers of the last."""
+    flips, gap = lc_numbers(passes[-1], ref)
+    return {"pose_gap_m": [pose_gap(p, ref) for p in passes], "lc_flips": flips, "lc_gap_m": gap}

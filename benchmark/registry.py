@@ -3,15 +3,53 @@
 ``BENCHMARK.json`` names the cells, configurations and metrics; each part
 lives in a file of its own under the benchmark's directory, found by its
 name: ``configs/<config>.json`` (the file that ``BENCHMARK.json`` gives),
-``traffic/<mix>.json`` and ``metrics/<metric>.py``.
-A new cell is a new entry and, at most, new files: nothing here names a
-cell, a configuration, a mix or a metric."""
+``traffic/<mix>.json``, ``metrics/<metric>.py`` and the configuration's
+plain reference, ``<reference>.py``.  A new cell is a new entry and, at
+most, new files: nothing here or in the harness names a cell, a
+configuration, a mix, a metric, a reference, a pipeline profile or a check
+number.
+
+A configuration file holds the survey's sizes (``survey``), the survey the
+benchmark's own CPU tests run instead (``tiny_survey``), the program's
+pipeline profile (``pipeline``), the reference's module (``reference``),
+the limits of the numbers compared (``check``) and the warm-up passes.
+
+``pipeline`` is ``{"profile": NAME}`` or ``{"profile": NAME, "args":
+{...}}``: the function ``NAME_config`` of the program's ``config`` module
+called with ``args`` (``automatic``: ``automatic_config(drift_budget=...)``),
+or, where the module has no such function, its constant ``NAME`` in
+capitals, which takes no arguments (``default``: ``config.DEFAULT``,
+``PipelineConfig()``); :func:`benchmark.slampass.pipeline_config`.
+
+The reference module provides:
+
+* ``PROFILE``: the ``pipeline`` entry whose answers it computes; a
+  configuration that names another profile is refused;
+* ``NUMBERS``: the names of the numbers it forms; a limit on any other is
+  refused;
+* ``run(survey, control=False)``: its answers for a survey (``control``:
+  in the precision below the configuration's, :mod:`benchmark.control`);
+* ``outputs(record)``: the program's answers of one pass (a
+  :class:`benchmark.slampass.PassRecord`) in the reference's layout;
+* ``numbers(passes, ref)``: ``{name: value}`` from the outputs of every
+  checked pass, in order, and the reference's answers; a value is a number,
+  or a list with one number per pass where each pass is held to it alone.
+  :mod:`benchmark.check` holds them to their limits.
+
+A per-layer metric's reader, ``read(ctx)``, gets a
+:class:`benchmark.harness.Context`: ``stages`` (each unprofiled window
+pass's stage seconds), ``trace`` (the profiled stretch's
+:class:`benchmark.devtrace.TraceSummary`, whose ``ops`` has every device
+operation's seconds and count by name), ``spans`` (each unprofiled window
+pass's program spans, ``SpanRecord``\\ s of ``diasss_tpu_torch.trace``) and
+``stretch_spans`` (those of the profiled stretch); the last three only in
+a ``--trace 1`` run."""
 
 import importlib.util
 import json
 from pathlib import Path
 from types import ModuleType
-from typing import Dict, List, NamedTuple
+from typing import Dict, List, NamedTuple, Tuple
 
 HERE = Path(__file__).resolve().parent
 
@@ -27,12 +65,21 @@ def load_module(path: Path) -> ModuleType:
     return mod
 
 
+def profile_of(entry) -> Tuple[str, dict]:
+    """``(name, args)`` of a ``pipeline`` entry; raises on any other shape."""
+    args = entry.get("args", {}) if isinstance(entry, dict) else None
+    if not isinstance(args, dict) or not isinstance(entry.get("profile"), str) or set(entry) - {"profile", "args"}:
+        raise ValueError(f"a pipeline entry is {{'profile': NAME, 'args': {{...}}}}, not {entry!r}")
+    return entry["profile"], dict(args)
+
+
 class Plan(NamedTuple):
     cell: dict  # the workloads entry
     config: dict  # configs/<config>.json
     mix: dict  # traffic/<mix>.json
     end_to_end: List[dict]  # the end-to-end metrics the cell reports
     per_layer: List[dict]  # the per-layer metrics the cell reports
+    reference: ModuleType  # the configuration's plain reference
 
 
 class Registry:
@@ -54,6 +101,22 @@ class Registry:
             raise ValueError(f"configuration file of {name!r} names {cfg.get('name')!r}")
         return cfg
 
+    def reference(self, config: dict) -> ModuleType:
+        """The plain reference that ``config`` names, once it is shown to
+        state the configuration's pipeline profile and to form every number
+        that the configuration limits."""
+        if not str(config.get("reference")).isidentifier():
+            raise ValueError(f"configuration {config['name']!r} names no reference module: {config.get('reference')!r}")
+        ref = load_module(self.root / f"{config['reference']}.py")
+        if profile_of(config["pipeline"]) != profile_of(ref.PROFILE):
+            raise ValueError(f"configuration {config['name']!r} runs the pipeline {config['pipeline']!r}; its "
+                             f"reference {config['reference']!r} states {ref.PROFILE!r}")
+        unknown = set(config["check"]) - set(ref.NUMBERS)
+        if unknown:
+            raise ValueError(f"configuration {config['name']!r} limits {sorted(unknown)}, which its reference "
+                             f"{config['reference']!r} does not form (it forms {list(ref.NUMBERS)})")
+        return ref
+
     def mix(self, name: str) -> dict:
         return json.loads((self.root / "traffic" / f"{name}.json").read_text())
 
@@ -70,8 +133,9 @@ class Registry:
 
     def plan(self, cell: str) -> Plan:
         entry = self._entry("workloads", cell)
-        return Plan(entry, self.config(entry["config"]), self.mix(entry["traffic"]),
-                    self.end_to_end(cell), self.per_layer(cell))
+        config = self.config(entry["config"])
+        return Plan(entry, config, self.mix(entry["traffic"]), self.end_to_end(cell), self.per_layer(cell),
+                    self.reference(config))
 
     def readers(self, plan: Plan) -> Dict[str, ModuleType]:
         return {m["name"]: self.reader(m["name"]) for m in plan.per_layer}

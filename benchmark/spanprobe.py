@@ -130,19 +130,12 @@ def lc_idle(records, lo, hi, device_events):
 
 def profiled(pkg, one_pass, device):
     import torch
-    from torch.profiler import ProfilerActivity, profile, record_function
 
-    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
-    pkg.pipeline._sync(device)
-    with profile(activities=activities) as prof, pkg.trace.recording() as rec:
-        with record_function(devtrace.STRETCH_SPAN):
-            one_pass()
-            pkg.pipeline._sync(device)
+    _, records, prof = harness.profiled_stretch(pkg, one_pass, device)
     raw = prof.profiler.kineto_results.events()
     dev_ev, host_ev, span_ev, lo, hi = devtrace.events_of(prof)
     summary = devtrace.summarize(dev_ev, host_ev, span_ev, lo, hi)
     launches = spans.launch_times(raw)
-    records = rec.spans
     ops_lc, n_lc = spans.launches_per_span(records, launches, "lm.iteration", "loop_closures")
     ops_pg, n_pg = spans.launches_per_span(records, launches, "pose_graph.trial")
     ops_jac, n_jac = spans.launches_per_span(records, launches, "lm.linearize", "loop_closures")
@@ -185,9 +178,8 @@ def measure(pkg, one_pass, device, pairs: int) -> dict:
     for k in range(2 * pairs):
         side = "on" if (k % 4) in (1, 2) else "off"
         if side == "on":
-            with pkg.trace.recording() as rec:
-                r = one_pass()
-            recorded.append(rec.spans)
+            r, spans_of_pass = harness.recorded(pkg, one_pass)
+            recorded.append(spans_of_pass)
             on_passes.append(r._replace(result=None))
         else:
             r = one_pass()

@@ -11,11 +11,6 @@ ROOT = Path(__file__).resolve().parents[2]
 if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
 
-# per configuration, a survey of the same layout that the CPU runs in seconds
-TINY_SURVEYS = {
-    "anno20": dict(n_lines=3, n_pings=200, n_bins=256, n_landmarks=80, drift_xy=0.004),
-}
-
 
 @pytest.fixture(scope="session")
 def registry():
@@ -30,8 +25,9 @@ def spec():
 
 
 def tiny_plan(registry, cell: str):
-    """The cell's plan with its survey cut to :data:`TINY_SURVEYS` and no
+    """The cell's plan with its survey cut to the configuration's
+    ``tiny_survey`` (the same layout, which the CPU runs in seconds) and no
     warm-up pass: one pass, then the reference."""
     plan = registry.plan(cell)
-    config = dict(plan.config, survey=TINY_SURVEYS[plan.config["name"]], warmup_passes=0)
+    config = dict(plan.config, survey=plan.config["tiny_survey"], warmup_passes=0)
     return plan._replace(config=config)

@@ -73,9 +73,9 @@ def test_control_is_not_correct(registry):
     program's place."""
     plan = tiny_plan(registry, CELL)
     survey = synthetic.make_survey(**plan.config["survey"], seed=SEED)
-    ref = plainref.run(survey)
-    ctl = plainref.run(survey, control=True)
-    numbers, failed = check.compare([ctl], ctl, ref, plan.config["check"])
+    ref = plan.reference.run(survey)
+    ctl = plan.reference.run(survey, control=True)
+    numbers, failed = check.compare(plan.reference.numbers([ctl], ref), plan.config["check"])
     assert not check.passed(numbers, failed), numbers
 
 

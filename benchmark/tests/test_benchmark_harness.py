@@ -23,7 +23,9 @@ def test_every_cell_finds_its_parts(registry, spec):
         plan = registry.plan(cell["name"])
         assert plan.config["name"] == cell["config"]
         traffic.check_mix(plan.mix)
-        assert {"survey", "pipeline", "check", "precision", "reduced", "assumed", "warmup_passes"} <= set(plan.config)
+        assert {"survey", "tiny_survey", "pipeline", "reference", "check", "precision", "reduced", "assumed",
+                "warmup_passes"} <= set(plan.config)
+        assert set(plan.config["check"]) <= set(plan.reference.NUMBERS)
         readers = registry.readers(plan)
         assert set(readers) == {m["name"] for m in plan.per_layer}
         assert all(callable(r.read) for r in readers.values())
@@ -64,6 +66,7 @@ def test_new_cell_is_new_files_and_entries(tmp_path, spec):
     root = tmp_path / "benchmark"
     for sub in ("configs", "traffic", "metrics"):
         shutil.copytree(ROOT / "benchmark" / sub, root / sub)
+    shutil.copy(ROOT / "benchmark" / "plainref.py", root)
     before = {p: p.read_bytes() for p in root.rglob("*") if p.is_file()}
     cfg = json.loads((root / "configs" / "anno20.json").read_text())
     cfg.update(name="anno5", survey=dict(cfg["survey"], n_lines=5))
@@ -124,7 +127,7 @@ def test_idle_share_is_a_union_of_overlapping_kernels():
     E = devtrace.Event
     device = [E("k1", 10, 30), E("k2", 20, 40), E("k3", 35, 45), E("k4", 70, 80), E("k5", 95, 130)]
     host = [E("aten::item", 45, 70), E("aten::mm", 0, 12), E("aten::add", 80, 99)]
-    spans = [E("benchmark._solve_two_stage", 0, 100)]
+    spans = [E("pose_graph.trial", 0, 100)]
     s = devtrace.summarize(device, host, spans, 0, 100)
     assert s.busy_s == pytest.approx(50e-9)  # [10, 45) + [70, 80) + [95, 100)
     assert s.window_s == pytest.approx(100e-9)
@@ -133,10 +136,11 @@ def test_idle_share_is_a_union_of_overlapping_kernels():
     idle = reg.load_module(ROOT / "benchmark" / "metrics" / "device.idle_pct.batch.py").read(ctx)
     assert idle == pytest.approx(50.0)
     gaps = dict(s.idle_gaps)
-    assert gaps["benchmark._solve_two_stage > aten::item"] == pytest.approx(25e-9)
-    assert gaps["benchmark._solve_two_stage > aten::mm"] == pytest.approx(10e-9)
-    assert gaps["benchmark._solve_two_stage > aten::add"] == pytest.approx(15e-9)
+    assert gaps["pose_graph.trial > aten::item"] == pytest.approx(25e-9)
+    assert gaps["pose_graph.trial > aten::mm"] == pytest.approx(10e-9)
+    assert gaps["pose_graph.trial > aten::add"] == pytest.approx(15e-9)
     assert s.device_ops[0] == ("k5", pytest.approx(35e-9))
+    assert s.ops["k5"] == (pytest.approx(35e-9), 1) and len(s.ops) == 5
     assert devtrace.union_seconds([], 0, 10) == (0, [(0, 10)])
 
 
