@@ -245,9 +245,7 @@ def _report(label, r):
 
 
 def main():
-    import dataclasses
-
-    from .config import PipelineConfig, automatic_config
+    from .config import annotated_full_ba_config, automatic_config
     from .synthetic import make_survey
 
     print(card_line(), file=sys.stderr)
@@ -261,9 +259,8 @@ def main():
     _report("12k", r12k)
 
     # --- joint Schur BA on a crossing survey (4200 poses, direct step) ---
-    ba_cfg = dataclasses.replace(PipelineConfig(), min_overlap=0.1, estimator="full_ba")
     rba = run(n_lines=5, n_tie_lines=2, n_landmarks=300, n_passes=2,
-              cfg=ba_cfg, with_gt=True)
+              cfg=annotated_full_ba_config(), with_gt=True)
     _report("full_ba", rba)
 
     # --- fully-automatic pipeline (no annotations): detect -> dense

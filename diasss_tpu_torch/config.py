@@ -265,6 +265,19 @@ def pair_mode_config() -> PipelineConfig:
     )
 
 
+def annotated_full_ba_config() -> PipelineConfig:
+    """The annotated survey under joint bundle adjustment: the default
+    profile's annotations with the full-BA estimator (Huber 3.0, 40
+    trials, no geo-discrepancy gate) and an overlap gate of 0.1, low
+    enough to admit tie-line crossings (main-vs-tie IoU ~0.2).  The step
+    is the exact direct one: ``"auto"`` takes it only while its three
+    ``(P, 6, 3 K_pad + 1)`` float32 buffers stay under the JAX package's
+    4 GB guard (``full_ba.resolve_ba_solver_kind``), and a 20-line survey
+    (12,000 poses, K_pad 2048: 5.3 GB) would fall to ``"dense_seg"`` PCG;
+    the card holds them."""
+    return PipelineConfig(min_overlap=0.1, estimator="full_ba", full_ba=FullBAConfig(preconditioner="direct"))
+
+
 def detected_config(cfg: PipelineConfig, descriptor: str = "sift") -> PipelineConfig:
     """``cfg`` with the CLI's ``--detected`` settings for ``descriptor``
     (``diasss_tpu/cli.py:118-134``): ORB with Hamming distances, geo patches

@@ -78,6 +78,10 @@ class SlamResult:
     # tangent order; pose 0 is the gauge, zero) when the estimator's
     # ``marginals`` is set, else None
     pose_sigmas: Optional[np.ndarray] = None
+    # (K, 3) full-BA estimate of each valid correspondence's landmark, in
+    # the problem's order (gated pairs, then each pair's rows); None on the
+    # two-stage path
+    landmarks: Optional[torch.Tensor] = None
 
     def frame_poses(self, f: int) -> se3.Pose3:
         """The estimated poses of frame ``f``."""
@@ -561,7 +565,8 @@ def _solve_full_ba(frames, geo_list, kps_pairs, pair_ids, cfg: PipelineConfig, i
             ba_cfg = dataclasses.replace(ba_cfg, max_geo_discrepancy=cfg.rematch_geo_discrepancy)
         noise = rng if cfg.pose_graph.init_noise_xyz > 0 and init_poses is None else None
         frames_geo = [f._replace(geo=g) for f, g in zip(frames, geo_list)]
-        prob = full_ba.build_ba_problem(frames_geo, kps_pairs, pair_ids, ba_cfg, cfg.pose_graph, rng=noise)
+        with trace.span("full_ba.build"):
+            prob = full_ba.build_ba_problem(frames_geo, kps_pairs, pair_ids, ba_cfg, cfg.pose_graph, rng=noise)
         if init_poses is not None:
             prob = prob._replace(poses0=init_poses)
         n_valid = int(prob.kp_valid.sum())
@@ -574,6 +579,7 @@ def _solve_full_ba(frames, geo_list, kps_pairs, pair_ids, cfg: PipelineConfig, i
             poses, lms, info = full_ba.solve_full_ba(prob, ba_cfg, cfg.kp_noise,
                                                      k_direct_cols=_woodbury_width(prob, n_valid))
         _count(counters, f"solver_{info.solver_kind}_solves", 1)
+        _count(counters, "full_ba_trials", info.iterations)
         _sync(poses.t.device)
     return poses, info, n_valid, prob, lms
 
@@ -639,7 +645,7 @@ def run_slam(
         # iterated match -> assemble -> solve (re-matching only when detected)
         geo_list = [f.geo for f in frames]
         n_iters = 1 + (cfg.rematch_iters if not use_anno else 0)
-        init_poses = poses = info = prev_t = solved = None
+        init_poses = poses = info = prev_t = solved = landmarks = None
         lc_results: Dict[Tuple[int, int], LCResult] = {}
         n_acc = 0
         kps_pairs: Dict[Tuple[int, int], KpsPairs] = {}
@@ -673,6 +679,7 @@ def run_slam(
                                                                init_poses, it, rng, timings, counters)
                 init_poses = poses
                 solved = (prob, lms, n_acc)
+                landmarks = lms[:n_acc]  # the valid slots lead the padded batch
             else:
                 poses, info, lc_results, n_acc, solved = _solve_two_stage(frames, geo_list, kps_pairs, pair_ids,
                                                                           cap, cfg, rng, timings, counters)
@@ -719,6 +726,7 @@ def run_slam(
             counters=counters,
             solve_capped=info.iterations >= max_it and info.stall == 0,
             pose_sigmas=pose_sigmas,
+            landmarks=landmarks,
         )
         if out_dir is not None:
             from .dumps import write_reference_dumps

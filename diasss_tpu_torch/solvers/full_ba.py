@@ -26,6 +26,7 @@ import numpy as np
 import torch
 from torch.func import jvp, vmap
 
+from .. import trace
 from ..config import FullBAConfig
 from ..factors.between import between_residual
 from ..factors.sss_point import kp_noise_sigmas, sss_point_residual
@@ -389,32 +390,37 @@ def _pcg_ba_step(kind: str, prob, segs, nb: _Normal, g_red, D_p, ll_solve, L_ll,
 
 def _trial(poses, lms, err, lam, prob: BAProblem, segs, sig_s, sig_t, cfg: FullBAConfig, kp_cfg, kind: str,
            k_cols, terms: FactorTerms):
-    """One LM trial; returns (poses, lms, err, lam, CG iterations)."""
+    """One LM trial; returns (poses, lms, err, lam, CG iterations).  Spans
+    ``full_ba.linearize`` (normal blocks, landmark factors, reduced
+    gradient) and ``full_ba.step`` (the step, the candidate's error, the
+    accept)."""
     from .pose_graph import _cholesky_or_nan
 
     P = poses.t.shape[0]
     dtype, dev = lms.dtype, lms.device
-    nb = _normal_blocks(poses, lms, prob, sig_s, sig_t, cfg.huber_delta, segs, terms.sonar)
-    L_ll = _cholesky_or_nan(nb.H_ll * (1.0 + lam) + 1e-6 * torch.eye(3, dtype=dtype, device=dev))
+    with trace.span("full_ba.linearize"):
+        nb = _normal_blocks(poses, lms, prob, sig_s, sig_t, cfg.huber_delta, segs, terms.sonar)
+        L_ll = _cholesky_or_nan(nb.H_ll * (1.0 + lam) + 1e-6 * torch.eye(3, dtype=dtype, device=dev))
 
-    def ll_solve(x):  # (K, 3)
-        return torch.cholesky_solve(x[..., None], L_ll)[..., 0]
+        def ll_solve(x):  # (K, 3)
+            return torch.cholesky_solve(x[..., None], L_ll)[..., 0]
 
-    g_p = nb.g_p.clone()
-    g_p[0] = 0.0
-    D_p = nb.D_p.clone()
-    D_p[0] = torch.eye(6, dtype=dtype, device=dev)
-    y = ll_solve(nb.g_l)
-    g_red = g_p - _kp_sum(segs, (nb.Hpl_s @ y[..., None])[..., 0], (nb.Hpl_t @ y[..., None])[..., 0])
-    g_red[0] = 0.0
-    if kind == "direct":
-        delta_p = _direct_ba_step(prob, g_red, nb.U_chain, D_p, L_ll, nb.Hpl_s, nb.Hpl_t, lam, P,
-                                  int(prob.kp_i.shape[0]), k_cols=k_cols)
-        cg_k = 0
-    else:
-        delta_p, cg_k = _pcg_ba_step(kind, prob, segs, nb, g_red, D_p, ll_solve, L_ll, lam, P, cfg)
-    return _finish_trial(poses, lms, err, lam, delta_p, nb.Jp_s, nb.Jp_t, nb.Jl_s, nb.Jl_t, nb.g_l, ll_solve,
-                         prob, kp_cfg, cfg, P, terms) + (cg_k,)
+        g_p = nb.g_p.clone()
+        g_p[0] = 0.0
+        D_p = nb.D_p.clone()
+        D_p[0] = torch.eye(6, dtype=dtype, device=dev)
+        y = ll_solve(nb.g_l)
+        g_red = g_p - _kp_sum(segs, (nb.Hpl_s @ y[..., None])[..., 0], (nb.Hpl_t @ y[..., None])[..., 0])
+        g_red[0] = 0.0
+    with trace.span("full_ba.step"):
+        if kind == "direct":
+            delta_p = _direct_ba_step(prob, g_red, nb.U_chain, D_p, L_ll, nb.Hpl_s, nb.Hpl_t, lam, P,
+                                      int(prob.kp_i.shape[0]), k_cols=k_cols)
+            cg_k = 0
+        else:
+            delta_p, cg_k = _pcg_ba_step(kind, prob, segs, nb, g_red, D_p, ll_solve, L_ll, lam, P, cfg)
+        return _finish_trial(poses, lms, err, lam, delta_p, nb.Jp_s, nb.Jp_t, nb.Jl_s, nb.Jl_t, nb.g_l, ll_solve,
+                             prob, kp_cfg, cfg, P, terms) + (cg_k,)
 
 
 def solve_full_ba(prob: BAProblem, cfg: FullBAConfig, kp_cfg, lam0=None, stall0=None,
@@ -429,26 +435,42 @@ def solve_full_ba(prob: BAProblem, cfg: FullBAConfig, kp_cfg, lam0=None, stall0=
     is the damping at exit.  ``k_direct_cols``: leading factor slots that
     carry Woodbury columns in the direct step (the padding tail is
     invalid); None = all K slots.  ``terms``: the sonar factors' cost and
-    linearization (:class:`FactorTerms`)."""
-    P = prob.poses0.t.shape[0]
-    dtype, dev = prob.poses0.t.dtype, prob.poses0.t.device
-    kind = resolve_ba_solver_kind(cfg.preconditioner, P, int(prob.kp_i.shape[0]))
-    sig_s = kp_noise_sigmas(prob.kp_sr_s, kp_cfg.sigma_r, kp_cfg.alpha_bw_deg)
-    sig_t = kp_noise_sigmas(prob.kp_sr_t, kp_cfg.sigma_r, kp_cfg.alpha_bw_deg)
-    err0 = terms.error(prob.poses0, prob.lm0, prob, kp_cfg, cfg.huber_delta)
-    poses, lms, err = prob.poses0, prob.lm0, err0
-    segs = kp_segments(prob)
-    lam = torch.tensor(1e-4 if lam0 is None else float(lam0), dtype=dtype, device=dev)
-    stall = 0 if stall0 is None else int(stall0)
-    k = cg_total = 0
-    while k < cfg.max_iters and stall < 2:
-        poses, lms, err2, lam, cg_k = _trial(poses, lms, err, lam, prob, segs, sig_s, sig_t, cfg, kp_cfg, kind,
-                                             k_direct_cols, terms)
-        improved = bool((err - err2) > 1e-6 * torch.clamp(err, min=1e-30))
-        err = err2
-        k += 1
-        cg_total += cg_k
-        stall = 0 if improved else stall + 1
+    linearization (:class:`FactorTerms`).
+
+    Spans (:mod:`..trace`): the solve is ``full_ba.solve`` (attributes
+    ``kind``, ``P``, ``K`` (valid correspondences), ``K_pad``, ``k_cols``
+    (the direct step's Woodbury slots, 0 for PCG), ``trials``, ``stall``,
+    ``cg_iters``), each trial a ``full_ba.trial`` of ``full_ba.linearize``
+    and ``full_ba.step`` (:func:`_trial`) and ``full_ba.read``, the host's
+    wait at the stall read."""
+    with trace.span("full_ba.solve") as solve:
+        P = prob.poses0.t.shape[0]
+        K_pad = int(prob.kp_i.shape[0])
+        dtype, dev = prob.poses0.t.dtype, prob.poses0.t.device
+        kind = resolve_ba_solver_kind(cfg.preconditioner, P, K_pad)
+        sig_s = kp_noise_sigmas(prob.kp_sr_s, kp_cfg.sigma_r, kp_cfg.alpha_bw_deg)
+        sig_t = kp_noise_sigmas(prob.kp_sr_t, kp_cfg.sigma_r, kp_cfg.alpha_bw_deg)
+        err0 = terms.error(prob.poses0, prob.lm0, prob, kp_cfg, cfg.huber_delta)
+        poses, lms, err = prob.poses0, prob.lm0, err0
+        segs = kp_segments(prob)
+        lam = torch.tensor(1e-4 if lam0 is None else float(lam0), dtype=dtype, device=dev)
+        stall = 0 if stall0 is None else int(stall0)
+        k = cg_total = 0
+        while k < cfg.max_iters and stall < 2:
+            with trace.span("full_ba.trial"):
+                poses, lms, err2, lam, cg_k = _trial(poses, lms, err, lam, prob, segs, sig_s, sig_t, cfg, kp_cfg,
+                                                     kind, k_direct_cols, terms)
+                improved = (err - err2) > 1e-6 * torch.clamp(err, min=1e-30)
+                err = err2
+                k += 1
+                cg_total += cg_k
+                with trace.span("full_ba.read"):
+                    improved = bool(improved)
+                stall = 0 if improved else stall + 1
+        if solve.recorded:
+            k_cols = min(K_pad, k_direct_cols or K_pad) if kind == "direct" else 0
+            solve.set(kind=kind, P=P, K=int(prob.kp_valid.sum()), K_pad=K_pad, k_cols=k_cols, trials=k, stall=stall,
+                      cg_iters=cg_total)
     return poses, lms, BAInfo(error0=err0, error=err, iterations=k, stall=stall, cg_iters_total=cg_total,
                               solver_kind=kind, lam=lam)
 

@@ -95,6 +95,8 @@ def test_full_ba_on_annotations_matches_jax(survey, frames):
     assert ours.n_lc_accepted == ref.n_lc_accepted > 20
     assert abs(ours.ate_est - ref.ate_est) < 1e-3
     assert ours.ate_est < ours.ate_dr
-    assert ours.counters == {"eval_stacked_pairs": len(ref.pair_ids), "solver_direct_solves": 1}
+    assert ours.counters == {"eval_stacked_pairs": len(ref.pair_ids), "solver_direct_solves": 1,
+                             "full_ba_trials": ours.counters["full_ba_trials"]}
+    assert 1 <= ours.counters["full_ba_trials"] <= BA_ANNO.full_ba.max_iters
     for key in ref.pair_ids:
         assert abs(ours.eval1[key].avg_norm_est - ref.eval1[key].avg_norm_est) < 1e-3

@@ -171,7 +171,9 @@ def test_full_ba_matches_jax(tie_survey, tie_frames):
     assert ours.n_lc_accepted == ref.n_lc_accepted > 20
     assert abs(ours.ate_est - ref.ate_est) < 1e-3
     assert ours.ate_est < ours.ate_dr
-    assert ours.counters == {"eval_stacked_pairs": len(ref.pair_ids), "solver_direct_solves": 1}
+    assert ours.counters == {"eval_stacked_pairs": len(ref.pair_ids), "solver_direct_solves": 1,
+                             "full_ba_trials": ours.counters["full_ba_trials"]}
+    assert 1 <= ours.counters["full_ba_trials"] <= BA_ANNO.full_ba.max_iters
 
 
 @pytest.fixture(scope="module")

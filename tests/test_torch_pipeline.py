@@ -120,8 +120,11 @@ def test_unported_options_raise_naming_roadmap(survey, frames, cfg, item, tmp_pa
     if item in ("A7", "A9"):
         result = run_slam(frames[1], port_cfg(cfg), rng=JaxRng())
         assert torch.isfinite(result.poses.t).all()
+        trials = result.counters.get("full_ba_trials")
         assert result.counters == {"eval_stacked_pairs": len(result.pair_ids),
-                                   f"solver_{'dense_seg' if item == 'A7' else 'direct'}_solves": 1}
+                                   f"solver_{'dense_seg' if item == 'A7' else 'direct'}_solves": 1,
+                                   **({"full_ba_trials": trials} if cfg.estimator == "full_ba" else {})}
+        assert cfg.estimator != "full_ba" or 1 <= trials <= cfg.full_ba.max_iters
         assert (result.pose_sigmas is not None) == (item == "A9")
         return
     if item == "A11":
